@@ -5,26 +5,40 @@ Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py
 
-It drives the port's main path, the batched tables-only intensity runner
-(``imageprocess_tpu_torch.pipelines.intensity.run_intensity_batched``), on
-the card, at the shapes of the repo's benchmark: 16 stages x channels
-(2, 3) of 1536 x 2048 u16 frames with 18 circular ROIs of radius 60 each
-(288 rows).  Phases, each of which exits non-zero on failure:
+It drives the port's two main paths on the card, at the shapes of the
+repo's benchmark (16 stages x channels (2, 3) of 1536 x 2048 u16 frames
+with 18 circular ROIs of radius 60 each, 288 rows per run): the batched
+tables-only intensity runner
+(``imageprocess_tpu_torch.pipelines.intensity.run_intensity_batched``) and
+the batched FRET tables runner
+(``imageprocess_tpu_torch.pipelines.fret.run_fret_batched``, channels 2/3
+as donor/acceptor).  Phases, each of which exits non-zero on failure:
 
 1. the card's name and power limit;
-2. build ``kernels/tilestats_u16.cu`` with nvcc into
-   ``imageprocess_tpu_torch/_build/``;
-3. hold the kernel to its plain PyTorch version on the card: random,
-   tie-heavy, empty-ROI and padded-lane cases, the bench tile (t = 128,
-   above 48 KB of shared memory) and a tile above the shared-memory limit.
-   Masks, npx, area, vmin, vmax and the quantiles must be exact; mean, std
-   and vsum within 1e-5 relative;
+2. build ``kernels/tilestats_u16.cu`` and ``kernels/roistats_f32.cu`` with
+   nvcc into ``imageprocess_tpu_torch/_build/``, one nvcc each, started
+   together;
+3. hold each kernel to its plain PyTorch version on the card.
+   ``tilestats_u16``: random, tie-heavy, empty-ROI and padded-lane cases,
+   the bench tile (t = 128, above 48 KB of shared memory) and a tile above
+   the shared-memory limit.  ``roistats_f32``, in both of its forms (a
+   full frame with tile origins, a stack of tiles): random values with
+   negatives, NaN and +-inf inside and outside the masks, ties and signed
+   zeros, empty masks and padded lanes, unaligned origins into a bench
+   frame, the bench FRET chunk (4 x 18 tiles x 3 channels, t = 128) in
+   both kernel variants, and a tile above the shared-memory limit.  Masks,
+   npx, area, vmin, vmax and the quantiles must be equal; mean, std and
+   vsum within 1e-5 relative;
 4. write the dataset (under ``imageprocess_tpu_torch/_build/``);
-5. run the runner on the card: the first run checks every chunk's kernel
+5. run each runner on the card: the first run checks every chunk's kernel
    output against the plain version on the same device tensors and counts
-   kernel launches; later runs are timed.  Rows are checked against a
-   numpy reference for a few ROIs;
-6. kernel and plain times per chunk, with CUDA events.
+   kernel launches (the counts are set to 0 just before the run and read
+   just after); later runs are timed.  Rows are checked against a numpy
+   reference for a few ROIs of two stages;
+6. a small experiment with a key of another frame shape (the runners'
+   per-key path) gives the same rows on the card as on the CPU, for each
+   runner;
+7. kernel and plain times per chunk, with CUDA events.
 
 The last two lines of standard output are one JSON object per line: the
 kernel table, then ``{"ok": true, "device": {...}}``.  Without a card, or
@@ -33,6 +47,7 @@ outside a checkout, it prints no result and exits non-zero.
 
 from __future__ import annotations
 
+import concurrent.futures as cf
 import json
 import math
 import os
@@ -52,8 +67,14 @@ ROI_RADIUS = 60
 REL_TOL = 1e-5
 EXACT_ROWS = (1, 3, 4, 5, 6, 8, 9)   # median p5 p95 vmin vmax npx area
 MOMENT_ROWS = (0, 2, 7)              # mean std vsum
-KERNEL_SOURCE = "imageprocess_tpu_torch/kernels/tilestats_u16.cu"
-KERNEL_REPLACES = "imageprocess_tpu/ops/pallas_tilestats.py:47"
+KERNELS = {  # name: (source, the TPU kernel it replaces)
+    "tilestats_u16": ("imageprocess_tpu_torch/kernels/tilestats_u16.cu",
+                      "imageprocess_tpu/ops/pallas_tilestats.py:47"),
+    "roistats_f32": ("imageprocess_tpu_torch/kernels/roistats_f32.cu",
+                     "imageprocess_tpu/ops/pallas_roistats.py:98"),
+}
+ROW_EXACT = (1, 3, 4, 5, 6, 8)       # (R, C, 9) rows: median p5 p95 vmin vmax npx
+ROW_MOMENTS = (0, 2, 7)              # mean std vsum
 
 
 class SmokeError(RuntimeError):
@@ -73,9 +94,11 @@ def card_line() -> str:
 
 # ------------------------------------------------------------------ compare
 
-def compare_packed(got, want, what: str) -> dict:
-    """Kernel vs plain (B, 10, C, N) float32 on one device: exact rows
-    must be bit-equal (NaN where NaN), moment rows within REL_TOL."""
+def compare_packed(got, want, what: str, exact=EXACT_ROWS,
+                   moments=MOMENT_ROWS) -> dict:
+    """Kernel vs plain statistics on one device, the statistic on axis 1
+    ((B, 10, C, N) packed, or (R, 9, C) rows): *exact* rows must be equal
+    by value (NaN where NaN), *moments* rows within REL_TOL."""
     import torch
 
     g, w = got.detach().cpu().double(), want.detach().cpu().double()
@@ -84,12 +107,14 @@ def compare_packed(got, want, what: str) -> dict:
     nan_g, nan_w = torch.isnan(g), torch.isnan(w)
     if not torch.equal(nan_g, nan_w):
         raise SmokeError(f"{what}: NaN positions differ")
+    if not torch.isfinite(g[~nan_g]).all() or not torch.isfinite(w[~nan_w]).all():
+        raise SmokeError(f"{what}: infinite statistics")
     ok = ~nan_w
-    exact = list(EXACT_ROWS)
+    exact = list(exact)
     d_exact = (g[:, exact] - w[:, exact]).abs()[ok[:, exact]]
     if d_exact.numel() and d_exact.max().item() != 0.0:
         raise SmokeError(f"{what}: exact rows differ by {d_exact.max().item()}")
-    mom = list(MOMENT_ROWS)
+    mom = list(moments)
     gm, wm = g[:, mom][ok[:, mom]], w[:, mom][ok[:, mom]]
     rel = ((gm - wm).abs() / wm.abs().clamp(min=1e-9))
     max_rel = rel.max().item() if rel.numel() else 0.0
@@ -213,6 +238,119 @@ def check_kernel(device) -> dict:
             worst[k] = max(worst[k], err[k])
         print(f"kernel check ok: {name} shape={tuple(tiles.shape)} "
               f"smem={smem} npx_sum={int(want[:, 8].nansum().item())} "
+              f"max_abs_err={err['max_abs_err']} "
+              f"max_rel_err_moments={err['max_rel_err_moments']}")
+    return worst
+
+
+def roistats_cases(device):
+    """(name, frames, masks, offs, use_smem) tensors on *device*, in the
+    kernel's two forms: one frame with tile origins, or a stack of tiles
+    with origin 0 (``stack_offsets``)."""
+    import numpy as np
+    import torch
+
+    from imageprocess_tpu_torch.ops import roi_stats_kernel as rsk
+
+    rng = np.random.default_rng(11)
+    cases = []
+
+    def frame_form(name, img, masks, offs, use_smem=None):
+        offs3 = np.concatenate([np.zeros((len(offs), 1), np.int32),
+                                np.asarray(offs, np.int32)], 1)
+        cases.append((name, torch.from_numpy(img[None]).to(device),
+                      torch.from_numpy(masks).to(device),
+                      torch.from_numpy(offs3).to(device), use_smem))
+
+    def stack_form(name, tiles, masks, use_smem=None):
+        cases.append((name, tiles.to(device).contiguous(),
+                      torch.from_numpy(masks).to(device),
+                      rsk.stack_offsets(len(masks), device), use_smem))
+
+    def origins(n, H, W, t):
+        return np.stack([rng.integers(0, H - t + 1, n),
+                         rng.integers(0, W - t + 1, n)], 1)
+
+    # random values with negatives, no clip
+    img = rng.normal(-30, 80, (2, 300, 400)).astype(np.float32)
+    masks = rng.random((6, 64, 64)) > 0.3
+    frame_form("random negatives", img, masks, origins(6, 300, 400, 64))
+    stack_form("random negatives, stack form",
+               torch.from_numpy(img[:, :64, :384].reshape(2, 64, 6, 64)
+                                .transpose(2, 0, 1, 3).copy()), masks)
+    # NaN and +-inf inside and outside the masks
+    img = rng.uniform(0, 4000, (3, 200, 260)).astype(np.float32)
+    bad = rng.random(img.shape)
+    img[bad < 0.02] = np.nan
+    img[(bad >= 0.02) & (bad < 0.03)] = np.inf
+    img[(bad >= 0.03) & (bad < 0.04)] = -np.inf
+    img[0, 10:50, 10:50] = np.nan
+    masks = rng.random((5, 48, 48)) > 0.5
+    frame_form("NaN and inf", img, masks, [[10, 10]] + list(origins(4, 200, 260, 48)))
+    # ties and signed zeros (keys of -0.0 and +0.0 are one key)
+    vals = np.array([-0.0, 0.0, -1.5, 2.25, 2.25, 7.0, 3e6, -1e-3], np.float32)
+    img = rng.choice(vals, size=(3, 96, 96)).astype(np.float32)
+    masks = rng.random((4, 48, 48)) > 0.3
+    masks[3] = False
+    masks[3, 5, 5] = True                                    # n = 1
+    frame_form("ties and signed zeros", img, masks, origins(4, 96, 96, 48))
+    # empty masks and padded lanes (all-zero masks)
+    img = rng.uniform(0, 100, (2, 64, 64)).astype(np.float32)
+    masks = np.zeros((5, 32, 32), bool)
+    masks[1, 3:20, 4:9] = True
+    frame_form("empty masks + padded lanes", img, masks, origins(5, 64, 64, 32))
+    # unaligned origins into one bench frame: 18 tiles, t = 128
+    img = (rng.normal(120, 15, (2, H, W)) + 3000.0 * (rng.random((2, H, W)) > 0.97)
+           ).astype(np.float32)
+    masks = rng.random((N_ROI, 128, 128)) > 0.25
+    frame_form("unaligned origins into a bench frame", img, masks,
+               origins(N_ROI, H - 1, W - 1, 128) | 1)
+    # the bench FRET chunk: 4 x 18 tiles x [ratio, donor, acceptor], t = 128
+    tiles = torch.from_numpy(rng.integers(60, 3200, (4, N_ROI, 2, 128, 128))
+                             .astype(np.uint16))
+    stack = rsk.fret_tile_stack(tiles, torch.tensor(rng.uniform(50, 120, (4, 2)),
+                                                    dtype=torch.float32),
+                                torch.full((4,), 5.0))
+    masks = np.broadcast_to(
+        _circle_mask(128, 63.5, 63.5, ROI_RADIUS), (4 * N_ROI, 128, 128)).copy()
+    masks[-3:] = False                                        # padded lanes
+    stack_form("bench FRET chunk", stack, masks)
+    stack_form("bench FRET chunk from device memory", stack, masks, False)
+    # above the opt-in shared-memory limit: 272^2 f32 keys = 296 KB
+    tiles = torch.from_numpy(rng.normal(1.0, 0.3, (2, 3, 272, 272)).astype(np.float32))
+    masks = np.stack([_circle_mask(272, 135.5, 135.5, 130),
+                      _circle_mask(272, 100.5, 140.5, 80)])
+    stack_form("t=272 above the shared-memory limit", tiles, masks)
+    return cases
+
+
+def _circle_mask(t, cx, cy, r):
+    import numpy as np
+
+    yy, xx = np.mgrid[0:t, 0:t]
+    return (xx - cx) ** 2 + (yy - cy) ** 2 <= r * r
+
+
+def check_roistats(device) -> dict:
+    import torch
+
+    from imageprocess_tpu_torch.ops import roi_stats_kernel as rsk
+
+    worst = {"max_abs_err": 0.0, "max_rel_err_moments": 0.0}
+    for name, frames, masks, offs, use_smem in roistats_cases(device):
+        T = masks.shape[-1]
+        smem = rsk.kernel_uses_smem(T, frames.device) if use_smem is None \
+            else use_smem
+        got = rsk.roi_stat_rows(frames, masks, offs, use_smem=use_smem)
+        want = rsk.roi_stat_rows_plain(frames, masks, offs)
+        torch.cuda.synchronize()
+        err = compare_packed(got.movedim(-1, 1), want.movedim(-1, 1), name,
+                             ROW_EXACT, ROW_MOMENTS)
+        for k in worst:
+            worst[k] = max(worst[k], err[k])
+        print(f"roistats check ok: {name} frames={tuple(frames.shape)} "
+              f"tiles={tuple(masks.shape)} smem={smem} "
+              f"npx_sum={int(want[..., 8].nansum().item())} "
               f"max_abs_err={err['max_abs_err']} "
               f"max_rel_err_moments={err['max_rel_err_moments']}")
     return worst
@@ -444,6 +582,145 @@ def run_main_path(folder: str, device: str, reps: int = 3) -> dict:
     }
 
 
+def fret_reference_rows(folder: str, stage: str, roi_ids):
+    """numpy reference for a few ROIs of one stage (float64): bg =
+    np.percentile of the whole frame at 1.0 (no stride), corrected values
+    clipped at 0, eps = max(5, np.percentile of the whole corrected donor
+    at 1.0), ratio = (acceptor + eps) / (donor + eps), then mean, median,
+    std, p5 and p95 over each ROI's pixels (masks rasterized in their
+    tiles, as in ``reference_rows``)."""
+    import numpy as np
+    import torch
+
+    from imageprocess_tpu_torch._host import native
+    from imageprocess_tpu_torch.geom.rasterize import rasterize_polygons
+    from imageprocess_tpu_torch.ops.roistats import (
+        choose_tile, pad_local_polys, tile_offsets,
+    )
+
+    polys = bench_polys()
+    sel = [polys[i - 1] for i in roi_ids]
+    t = choose_tile(polys, H, W)
+    offs = tile_offsets(sel, H, W, t)
+    lp, _, _ = pad_local_polys(sel, offs, len(sel), 32)
+    masks = rasterize_polygons(torch.from_numpy(lp), (t, t)).numpy()
+    corr = {}
+    for ch in CHANNELS:
+        img = native.decode_tiff(os.path.join(folder, f"{stage}_{ch}.TIF"))
+        img = img.astype(np.float64)
+        corr[ch] = np.maximum(img - np.percentile(img.ravel(), 1.0), 0.0)
+    d, a = corr[CHANNELS[0]], corr[CHANNELS[1]]
+    eps = max(5.0, float(np.percentile(d.ravel(), 1.0)))
+    ratio = (a + eps) / (d + eps)
+    out = {}
+    for j, i in enumerate(roi_ids):
+        oy, ox = offs[j]
+
+        def vals(x):
+            return x[oy:oy + t, ox:ox + t][masks[j]]
+
+        r, dv, av = vals(ratio), vals(d), vals(a)
+        out[i] = {"area_px": int(masks[j].sum()), "eps": eps,
+                  "ratio_mean": r.mean(), "ratio_median": np.median(r),
+                  "ratio_std": r.std(), "ratio_p5": np.percentile(r, 5),
+                  "ratio_p95": np.percentile(r, 95),
+                  "donor_mean": dv.mean(), "donor_median": np.median(dv),
+                  "yfret_mean": av.mean(), "yfret_median": np.median(av)}
+    return out
+
+
+def run_fret_main_path(folder: str, device: str, reps: int = 3) -> dict:
+    """The FRET tables runner on the smoke dataset (channels 2/3 as
+    donor/acceptor, batch_size=4): one checked run, then *reps* timed."""
+    import torch
+
+    from imageprocess_tpu_torch.ops import roi_stats_kernel as rsk
+    from imageprocess_tpu_torch.parallel import runner
+    from imageprocess_tpu_torch.pipelines.fret import FretConfig, run_fret_batched
+
+    cfg = FretConfig(donor_ch=CHANNELS[0], acceptor_ch=CHANNELS[1], do_xls=True)
+    out_root = os.path.join(folder, "RES_fret")
+    workers = max(8, (os.cpu_count() or 1) * 2)
+    mpix = N_STAGES * 2 * H * W / 1e6
+    logs = []
+
+    def one_run():
+        return run_fret_batched(folder, cfg, out_root=out_root,
+                                log=logs.append, batch_size=4,
+                                prefetch_workers=workers, device=device)
+
+    # checked run: every chunk's kernel output vs the plain version on the
+    # same device tensors (the plain version launches no kernel)
+    real_step = runner.batched_fret_tile_stats_step
+    chunks, errs, inputs = [], [], []
+
+    def checked_step(tiles, lp, valid, bgs, eps, *, clip_neg=True, flip=False):
+        out = real_step(tiles, lp, valid, bgs, eps, clip_neg=clip_neg, flip=flip)
+        want = rsk.fret_tile_stats_packed_plain(tiles, lp, valid, bgs, eps,
+                                                clip_neg=clip_neg, flip=flip)
+        errs.append(compare_packed(out, want, f"FRET chunk {len(chunks)}"))
+        chunks.append(tuple(tiles.shape))
+        inputs.append((tiles, lp, valid, bgs, eps))
+        return out
+
+    runner.batched_fret_tile_stats_step = checked_step
+    rsk.reset_launches()
+    try:
+        rows = one_run()
+    finally:
+        runner.batched_fret_tile_stats_step = real_step
+    torch.cuda.synchronize()
+    launches = rsk.launches["roistats_f32"]
+    if len(rows) != N_STAGES * N_ROI:
+        raise SmokeError(f"FRET: {len(rows)} rows, want {N_STAGES * N_ROI}: "
+                         f"{logs[-5:]}")
+    if launches != len(chunks) or launches == 0:
+        raise SmokeError(f"FRET: kernel launches {launches} != chunks {len(chunks)}")
+    errors = [line for line in logs if "ERROR" in str(line) or "오류" in str(line)]
+    if errors:
+        raise SmokeError(f"FRET runner logged errors: {errors[:3]}")
+    stat_cols = ["ratio_mean", "ratio_median", "ratio_std", "ratio_p5",
+                 "ratio_p95", "donor_mean", "donor_median", "yfret_mean",
+                 "yfret_median", "eps"]
+    for r in rows:
+        if not all(math.isfinite(r[c]) for c in stat_cols):
+            raise SmokeError(f"FRET: non-finite stats in row {r['stage']} {r['roi']}")
+    for name in ("fret_ratio_perROI.csv", "fret_ratio_perROI.xlsx"):
+        if not os.path.exists(os.path.join(out_root, "xls", name)):
+            raise SmokeError(f"{name} was not written")
+    by_key = {(r["stage"], r["roi"]): r for r in rows}
+    ref_rel = 0.0
+    for stage in ("S01", f"S{N_STAGES:02d}"):
+        for i, want in fret_reference_rows(folder, stage, (1, 9, 18)).items():
+            r = by_key[(stage, i)]
+            if r["area_px"] != want["area_px"]:
+                raise SmokeError(f"FRET {stage} roi {i}: area differs from numpy")
+            for f in stat_cols:
+                a, b = r[f], want[f]
+                rel = abs(a - b) / max(abs(b), 1e-9)
+                ref_rel = max(ref_rel, rel)
+                if rel > REL_TOL:
+                    raise SmokeError(f"FRET {stage} roi {i} {f}: {a} vs numpy "
+                                     f"{b} ({rel:.2e} rel)")
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        rows2 = one_run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if len(rows2) != len(rows):
+            raise SmokeError("FRET: timed run lost rows")
+    return {
+        "rows": len(rows), "chunks": chunks, "launches": launches,
+        "warm_s": times[0], "steady_s": min(times), "times_s": times,
+        "warm_mpix_s": mpix / times[0], "steady_mpix_s": mpix / min(times),
+        "max_abs_err": max(e["max_abs_err"] for e in errs),
+        "max_rel_err_moments": max(e["max_rel_err_moments"] for e in errs),
+        "numpy_ref_max_rel": ref_rel,
+        "sample_inputs": inputs[0],
+    }
+
+
 def time_host_decode(folder: str, workers: int) -> float:
     """Wall seconds of the host's share alone: the fused native decode +
     histogram + tile cut of every key, on the runner's thread count (best
@@ -476,11 +753,24 @@ def check_serial_path(folder: str) -> int:
     """A small experiment whose third stage has another frame shape (so it
     takes the runner's per-key path) and a 16-bit key with ROIs of another
     size: rows on the card equal the rows of the same run on the CPU."""
-    import numpy as np
-
     from imageprocess_tpu_torch.pipelines.intensity import (
         IntensityConfig, run_intensity_batched,
     )
+
+    write_serial_experiment(folder)
+    cfg = IntensityConfig(channels=CHANNELS, do_xls=False)
+    rows = {dev: run_intensity_batched(folder, cfg, log=lambda *_: None,
+                                       batch_size=2, device=dev)
+            for dev in ("cuda", "cpu")}
+    _rows_equal(rows["cuda"], rows["cpu"], "serial-path check",
+                ("_mean", "_std", "_vsum"))
+    return len(rows["cuda"])
+
+
+def write_serial_experiment(folder: str) -> None:
+    """Five stages of small frames, the third of another frame shape (so
+    it takes the runners' per-key path), ROI counts 2/1/2/1/2."""
+    import numpy as np
 
     rng = np.random.default_rng(5)
     os.makedirs(os.path.join(folder, "roi"), exist_ok=True)
@@ -492,21 +782,32 @@ def check_serial_path(folder: str) -> int:
                                  rng.integers(10, 3000, (h, w)).astype("u2"))
         with open(os.path.join(folder, "roi", f"S{s:02d}.json"), "w") as f:
             json.dump({"rois": [poly, [[70, 40], [115, 45], [110, 85]]][:s % 2 + 1]}, f)
-    cfg = IntensityConfig(channels=CHANNELS, do_xls=False)
-    rows = {}
-    for dev in ("cuda", "cpu"):
-        rows[dev] = run_intensity_batched(folder, cfg, log=lambda *_: None,
-                                          batch_size=2, device=dev)
-    if len(rows["cuda"]) != 8 or len(rows["cpu"]) != 8:
-        raise SmokeError(f"serial-path check: {len(rows['cuda'])} rows on the "
-                         f"card, {len(rows['cpu'])} on the CPU, want 8")
-    for a, b in zip(rows["cuda"], rows["cpu"]):
+
+
+def _rows_equal(card, cpu, what: str, moments) -> None:
+    if len(card) != 8 or len(cpu) != 8:
+        raise SmokeError(f"{what}: {len(card)} rows on the card, {len(cpu)} "
+                         "on the CPU, want 8")
+    for a, b in zip(card, cpu):
         for k, v in b.items():
-            if isinstance(v, float) and k.endswith(("_mean", "_std", "_vsum")):
+            if isinstance(v, float) and k.endswith(moments):
                 if abs(a[k] - v) > REL_TOL * max(abs(v), 1e-9):
-                    raise SmokeError(f"serial-path check: {k} {a[k]} vs {v}")
+                    raise SmokeError(f"{what}: {k} {a[k]} vs {v}")
             elif a[k] != v:
-                raise SmokeError(f"serial-path check: {k} {a[k]!r} vs {v!r}")
+                raise SmokeError(f"{what}: {k} {a[k]!r} vs {v!r}")
+
+
+def check_fret_serial_path(folder: str) -> int:
+    """The FRET runner on the same kind of small experiment: rows on the
+    card equal the rows of the same run on the CPU."""
+    from imageprocess_tpu_torch.pipelines.fret import FretConfig, run_fret_batched
+
+    write_serial_experiment(folder)
+    cfg = FretConfig(donor_ch=CHANNELS[0], acceptor_ch=CHANNELS[1], do_xls=False)
+    rows = {dev: run_fret_batched(folder, cfg, log=lambda *_: None, batch_size=2,
+                                  device=dev) for dev in ("cuda", "cpu")}
+    _rows_equal(rows["cuda"], rows["cpu"], "FRET serial-path check",
+                ("_mean", "_std"))
     return len(rows["cuda"])
 
 
@@ -547,6 +848,49 @@ def time_chunk(inputs) -> dict:
             "step_ms": cuda_ms(step), "step_plain_ms": cuda_ms(step_plain)}
 
 
+def time_fret_chunk(inputs) -> dict:
+    """Per-chunk FRET times on the same device tensors, in turns (plain,
+    kernel, kernel, plain): the kernel against the plain PyTorch statistics
+    of the same [ratio, donor, acceptor] stack, and the whole step
+    (rasterize + stack + statistics) both ways."""
+    from imageprocess_tpu_torch.ops import roi_stats_kernel as rsk
+    from imageprocess_tpu_torch.ops import tile_stats_kernel as tsk
+
+    tiles, lp, valid, bgs, eps = inputs
+    B, N, _, t, _ = tiles.shape
+    masks = tsk.tile_masks(lp, valid, t).reshape(B * N, t, t)
+    stack = rsk.fret_tile_stack(tiles, bgs, eps)
+    offs = rsk.stack_offsets(B * N, tiles.device)
+    kern = lambda: rsk.roi_stat_rows(stack, masks, offs)  # noqa: E731
+    plain = lambda: rsk.roi_stat_rows_plain(stack, masks, offs)  # noqa: E731
+    p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)
+    step = lambda: rsk.fret_tile_stats_packed(tiles, lp, valid, bgs, eps)  # noqa: E731
+    step_plain = lambda: rsk.fret_tile_stats_packed_plain(  # noqa: E731
+        tiles, lp, valid, bgs, eps)
+    sp1, sk1, sk2, sp2 = (cuda_ms(step_plain), cuda_ms(step), cuda_ms(step),
+                          cuda_ms(step_plain))
+    return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+            "turns": [p1, k1, k2, p2],
+            "step_ms": (sk1 + sk2) / 2, "step_plain_ms": (sp1 + sp2) / 2,
+            "step_turns": [sp1, sk1, sk2, sp2]}
+
+
+def build_kernels() -> None:
+    """Build every kernel, one nvcc each, all started together."""
+    from imageprocess_tpu_torch.kernels import build
+
+    t0 = time.perf_counter()
+    with cf.ThreadPoolExecutor(len(KERNELS)) as pool:
+        futs = {name: pool.submit(build.load_library, name) for name in KERNELS}
+        for name, fut in futs.items():
+            fut.result()
+    print(f"build ok: {', '.join(KERNELS)} in {time.perf_counter() - t0:.1f} s")
+    for name in KERNELS:
+        for line in build.build_logs.get(name, "").splitlines():
+            if "registers" in line or "smem" in line or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}")
+
+
 def main(argv) -> int:
     kernels_only = "--kernels-only" in argv
     import torch
@@ -568,18 +912,13 @@ def main(argv) -> int:
           f"CUDA {torch.version.cuda}")
     torch.cuda.set_device(0)
 
-    from imageprocess_tpu_torch.kernels import build
-
-    t0 = time.perf_counter()
-    build.load_library("tilestats_u16")
-    print(f"build ok: tilestats_u16 in {time.perf_counter() - t0:.1f} s")
-    for line in build.build_logs.get("tilestats_u16", "").splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
-
+    build_kernels()
     worst = check_kernel("cuda")
     print(f"kernel checks ok: max_abs_err={worst['max_abs_err']} "
           f"max_rel_err_moments={worst['max_rel_err_moments']}")
+    worst_f = check_roistats("cuda")
+    print(f"roistats checks ok: max_abs_err={worst_f['max_abs_err']} "
+          f"max_rel_err_moments={worst_f['max_rel_err_moments']}")
     if kernels_only:
         print(json.dumps({"kernels_only": True}))
         return 0
@@ -607,9 +946,21 @@ def main(argv) -> int:
     print(f"e2e on {card}: warm {res['warm_mpix_s']:.2f} Mpix/s "
           f"({res['warm_s']:.3f} s), steady {res['steady_mpix_s']:.2f} Mpix/s "
           f"(best of {[round(x, 4) for x in res['times_s']]} s)")
+    fres = run_fret_main_path(data, "cuda")
+    print(f"FRET main path ok: {fres['rows']} rows, {len(fres['chunks'])} chunks "
+          f"{sorted(set(fres['chunks']))}, roistats launches {fres['launches']}, "
+          f"chunk max_abs_err={fres['max_abs_err']} "
+          f"max_rel_err_moments={fres['max_rel_err_moments']}, "
+          f"numpy reference max rel err {fres['numpy_ref_max_rel']:.3e}")
+    print(f"FRET e2e on {card}: warm {fres['warm_mpix_s']:.2f} Mpix/s "
+          f"({fres['warm_s']:.3f} s), steady {fres['steady_mpix_s']:.2f} Mpix/s "
+          f"(best of {[round(x, 4) for x in fres['times_s']]} s)")
     n = check_serial_path(os.path.join(data, "serial"))
     print(f"serial-path check ok: {n} rows (one key of another frame shape) "
           "equal on the card and on the CPU")
+    n = check_fret_serial_path(os.path.join(data, "serial_fret"))
+    print(f"FRET serial-path check ok: {n} rows (one pair of another frame "
+          "shape) equal on the card and on the CPU")
     workers = max(8, (os.cpu_count() or 1) * 2)
     dec = time_host_decode(data, workers)
     print(f"host share alone on this machine ({os.cpu_count()} cores, "
@@ -622,13 +973,27 @@ def main(argv) -> int:
           f"plain {[round(x, 4) for x in timing['turns']]}); whole step "
           f"rasterize + kernel {timing['step_ms']:.4f} ms (rasterize "
           f"{timing['rasterize_ms']:.4f} ms), plain {timing['step_plain_ms']:.4f} ms")
+    ftiming = time_fret_chunk(fres["sample_inputs"])
+    shape = tuple(fres["sample_inputs"][0].shape)
+    print(f"FRET per chunk {shape} on {card}: roistats kernel "
+          f"{ftiming['ms']:.4f} ms, plain {ftiming['plain_ms']:.4f} ms (turns "
+          f"plain/kernel/kernel/plain {[round(x, 4) for x in ftiming['turns']]}); "
+          f"whole step {ftiming['step_ms']:.4f} ms, plain "
+          f"{ftiming['step_plain_ms']:.4f} ms (turns "
+          f"{[round(x, 4) for x in ftiming['step_turns']]})")
     shutil.rmtree(data, ignore_errors=True)
     print(f"total {time.perf_counter() - t_start:.1f} s")
+    measured = {
+        "tilestats_u16": (res["launches"],
+                          max(res["max_abs_err"], worst["max_abs_err"]), timing),
+        "roistats_f32": (fres["launches"],
+                         max(fres["max_abs_err"], worst_f["max_abs_err"]), ftiming),
+    }
     print(json.dumps({"kernels": [{
-        "name": "tilestats_u16", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": res["launches"],
-        "max_abs_err": max(res["max_abs_err"], worst["max_abs_err"]),
-        "ms": timing["ms"], "plain_ms": timing["plain_ms"]}]}))
+        "name": name, "route": "cuda", "source": KERNELS[name][0],
+        "replaces": KERNELS[name][1], "launches": launches,
+        "max_abs_err": err, "ms": tm["ms"], "plain_ms": tm["plain_ms"]}
+        for name, (launches, err, tm) in measured.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -12,12 +12,16 @@ operation, as in the plain PyTorch version (``--use_fast_math`` is never
 used).  A library is rebuilt when its source or flags change.
 
 Usage: ``load_library("tilestats_u16")``; the build runs only inside that
-call, never when a module is imported.  A failed build raises.
+call, never when a module is imported.  A failed build raises.  Libraries
+of different names build concurrently (one ``nvcc`` each) when loaded
+from several threads; the shared ``*.cuh`` headers are part of every
+library's hash.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -32,6 +36,7 @@ NVCC_FLAGS = [ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xptxas=-v",
               "-shared", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
+_name_locks: Dict[str, threading.Lock] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
 #: nvcc's output (ptxas register and shared-memory report) per library
 build_logs: Dict[str, str] = {}
@@ -52,9 +57,11 @@ def find_nvcc() -> str:
 
 def _build(name: str) -> str:
     src = os.path.join(KERNEL_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(
-            f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src] + sorted(glob.glob(os.path.join(KERNEL_DIR, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
     out = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
     if os.path.exists(out):
         return out
@@ -78,6 +85,8 @@ def load_library(name: str) -> ctypes.CDLL:
     """Build (when needed) and load ``kernels/<name>.cu``; cached per
     process."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(_build(name))

@@ -33,73 +33,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr int kQ = 6;  // (p_lo, median, p_hi) x (k, k+1)
+using ip::kQ;
+using ip::kThreads;
+using ip::kWarps;
+using ip::Op;
+using ip::block_reduce;
+using ip::block_sum_int;
 constexpr int kRows = 10;
-
-__device__ __forceinline__ void quantile_pos(int n, int p1000, int* k,
-                                             float* g) {
-  const int nm1 = n - 1 > 0 ? n - 1 : 0;
-  const int q = nm1 / 100000;
-  const int r = nm1 % 100000;
-  const int r1 = r / 1000;
-  const int r0 = r % 1000;
-  const int b = r0 * p1000;
-  const int c = r1 * p1000 + b / 1000;
-  *k = q * p1000 + c / 100;
-  const int rem = (c % 100) * 1000 + b % 1000;
-  *g = __fdiv_rn(static_cast<float>(rem), 100000.0f);
-}
-
-// Block-wide reductions: warp shuffles, then one partial per warp in shared
-// memory that every thread combines itself (so all threads hold the same
-// result).  The trailing barrier lets the scratch be reused at once.
-template <int K>
-__device__ __forceinline__ void block_sum_int(int (&v)[K], int* scratch) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int q = 0; q < K; ++q) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v[q] += __shfl_xor_sync(0xffffffffu, v[q], o);
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int q = 0; q < K; ++q) scratch[warp * K + q] = v[q];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int q = 0; q < K; ++q) {
-    int s = 0;
-    for (int w = 0; w < kWarps; ++w) s += scratch[w * K + q];
-    v[q] = s;
-  }
-  __syncthreads();
-}
-
-enum class Op { kSum, kMin, kMax };
-
-template <Op op>
-__device__ __forceinline__ float combine(float a, float b) {
-  if (op == Op::kSum) return __fadd_rn(a, b);
-  if (op == Op::kMin) return fminf(a, b);
-  return fmaxf(a, b);
-}
-
-template <Op op>
-__device__ __forceinline__ float block_reduce(float v, float* scratch) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = combine<op>(v, __shfl_xor_sync(0xffffffffu, v, o));
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  float r = scratch[0];
-  for (int w = 1; w < kWarps; ++w) r = combine<op>(r, scratch[w]);
-  __syncthreads();
-  return r;
-}
 
 __device__ __forceinline__ float corrected(int raw, float bg, bool clip) {
   const float v = __fsub_rn(static_cast<float>(raw), bg);
@@ -150,19 +94,11 @@ tile_stats_u16_kernel(const uint16_t* __restrict__ tiles,
   block_sum_int<1>(cnt, iscratch);
   const int n = cnt[0];
   const float nf = fmaxf(static_cast<float>(n), 1.0f);
-  const int nm1 = n - 1 > 0 ? n - 1 : 0;
 
   // positions: ks[0..2] = k of p_lo, median, p_hi; ks[3..5] = k + 1
-  const int ps[3] = {p_lo1000, 50000, p_hi1000};
   int ks[kQ];
   float gs[3];
-#pragma unroll
-  for (int q = 0; q < 3; ++q) {
-    int k;
-    quantile_pos(n, ps[q], &k, &gs[q]);
-    ks[q] = min(max(k, 0), nm1);
-    ks[q + 3] = min(max(min(k + 1, nm1), 0), nm1);
-  }
+  ip::quantile_positions(n, p_lo1000, p_hi1000, ks, gs);
 
   for (int c = 0; c < C; ++c) {
     const uint16_t* xc = x + static_cast<size_t>(c) * P;
@@ -258,14 +194,7 @@ long long ip_tilestats_smem_bytes(int C, int t) {
 }
 
 // The card's opt-in limit of shared memory per block, or -1 on error.
-long long ip_tilestats_smem_optin(int device) {
-  int v = 0;
-  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             device) != cudaSuccess) {
-    return -1;
-  }
-  return v;
-}
+long long ip_tilestats_smem_optin(int device) { return ip::smem_optin(device); }
 
 // tiles (B, N, C, t, t) u16, masks (B, N, t, t) u8 (0/1), bgs (B, C) f32,
 // out (B, 10, C, N) f32; all contiguous on the current device.  Launches on

@@ -1,11 +1,17 @@
 """ROI-local (tiled) per-ROI statistics.
 
 Port of ``imageprocess_tpu/ops/roistats.py``: the host helpers that size,
-place and gather each ROI's square tile (numpy, unchanged), and
-``tile_stats_from_gathered``, the per-frame statistics of host-gathered
-raw tiles with a host-computed background.  Each tile covers its polygon's
-image-clipped bbox, and the rasterizer is shift-exact on the half-integer
-vertex lattice, so tile statistics equal full-frame ones.
+place and gather each ROI's square tile (numpy, unchanged);
+``roi_stats_tiled``, the statistics of bbox tiles sliced out of float
+frames on the device; and ``tile_stats_from_gathered``, the per-frame
+statistics of host-gathered raw tiles with a host-computed background.
+Each tile covers its polygon's image-clipped bbox, and the rasterizer is
+shift-exact on the half-integer vertex lattice, so tile statistics equal
+full-frame ones.
+
+u16 tiles take the u16 statistics (``ops.tilestats_u16``); float tiles
+take ``ops.roi_stats_kernel``: on CUDA tensors its hand kernel, on CPU
+tensors its plain version.
 """
 
 from __future__ import annotations
@@ -17,11 +23,8 @@ import torch
 
 from .._host import polygon
 from ..geom.rasterize import rasterize_polygons
+from . import roi_stats_kernel as rsk
 from .tilestats_u16 import tile_stats_u16
-
-FRET_SLICE = ("float tiles (FRET ratios, non-u16 frames) need the "
-              "pallas_roistats kernel port, which comes with the FRET slice "
-              "(ROADMAP Queue 1 item 8, Queue 2 item 2)")
 
 
 def choose_tile(
@@ -84,20 +87,53 @@ def gather_tiles(imgs: np.ndarray, offsets: np.ndarray, n_bucket: int,
     return out
 
 
+def roi_stat_rows(frames: torch.Tensor, masks: torch.Tensor,
+                  offs: torch.Tensor) -> torch.Tensor:
+    """(R, C, 9) float32 statistics of float tiles (``ops.roi_stats_kernel``
+    form): the hand kernel for CUDA tensors, its plain version for CPU
+    tensors."""
+    if frames.device.type == "cpu":
+        return rsk.roi_stat_rows_plain(frames, masks, offs)
+    return rsk.roi_stat_rows(frames, masks, offs)
+
+
+def roi_stats_tiled(
+    imgs: torch.Tensor,         # (C, H, W) float32 (already bg-corrected)
+    local_polys: torch.Tensor,  # (N, V, 2) float32, tile-local coords
+    offsets: torch.Tensor,      # (N, 2) int32 [row, col]
+    roi_valid: torch.Tensor,    # (N,) bool
+    tile: int,
+) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """Per-(channel, ROI) stats + per-ROI pixel areas, computed on
+    tile x tile bbox tiles of *imgs* (origins clamped into the frame).
+    Returns (stats dict of (C, N), area_px (N,) int32)."""
+    masks = rasterize_polygons(local_polys, (tile, tile)) & roi_valid[:, None, None]
+    offs = torch.nn.functional.pad(offsets.to(torch.int32), (1, 0))
+    rows = roi_stat_rows(imgs.to(torch.float32).contiguous()[None],
+                         masks.contiguous(), offs.contiguous())
+    return rsk.rows_to_stats(rows), masks.sum(dim=(1, 2), dtype=torch.int32)
+
+
 def tile_stats_from_gathered(
-    tiles: torch.Tensor,        # (N, C, t, t) RAW tile pixels, uint16
+    tiles: torch.Tensor,        # (N, C, t, t) RAW tile pixels
     local_polys: torch.Tensor,  # (N, V, 2) float32, tile-local coords
     roi_valid: torch.Tensor,    # (N,) bool
     bgs: torch.Tensor,          # (C,) float32 background levels
     *,
     clip_neg: bool = True,
 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-    """Per-(channel, ROI) stats of host-gathered u16 tiles with a
-    host-computed background.  Returns (stats dict of (C, N), area_px (N,)
-    int32)."""
-    if tiles.dtype != torch.uint16:
-        raise NotImplementedError(FRET_SLICE)
+    """Per-(channel, ROI) stats of host-gathered tiles with a
+    host-computed background: clip(x - bg) over each mask.  uint16 tiles
+    take the sort-free u16 statistics, other dtypes the float statistics.
+    Returns (stats dict of (C, N), area_px (N,) int32)."""
     t = tiles.shape[-1]
     masks = rasterize_polygons(local_polys, (t, t)) & roi_valid[:, None, None]
     area = masks.sum(dim=(1, 2), dtype=torch.int32)
-    return tile_stats_u16(tiles, masks, bgs, clip_neg=clip_neg), area
+    if tiles.dtype == torch.uint16:
+        return tile_stats_u16(tiles, masks, bgs, clip_neg=clip_neg), area
+    x = tiles.to(torch.float32) - bgs[None, :, None, None]
+    if clip_neg:
+        x = torch.clamp(x, min=0.0)
+    rows = roi_stat_rows(x.contiguous(), masks.contiguous(),
+                         rsk.stack_offsets(tiles.shape[0], tiles.device))
+    return rsk.rows_to_stats(rows), area

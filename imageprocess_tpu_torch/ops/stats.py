@@ -1,5 +1,84 @@
-"""Per-ROI statistic names (port of ``imageprocess_tpu/ops/stats.py``).
+"""Masked per-ROI statistics in plain PyTorch.
 
-``masked_stats`` comes with the serial intensity slice."""
+Port of ``imageprocess_tpu/ops/stats.py`` (``STAT_FIELDS``,
+``masked_stats``, ``roi_stats``).  Per ROI and channel: mean, median, std
+(ddof=0, two-pass like np.std), p5, p95, min, max, sum, count — over the
+*finite* masked values; NaN for every statistic but ``npx`` when there are
+none.  The quantiles sort the values once (``quantile_from_sorted``).
+
+``masked_stats_batched`` takes any leading batch shape, so one call serves
+a whole (B·N·3, t, t) stack of FRET tiles.  It is the plain version of the
+hand kernel ``kernels/roistats_f32.cu``: what the CPU runs and what the
+kernel is held to on the card.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from .percentile import quantile_from_sorted
 
 STAT_FIELDS = ("mean", "median", "std", "p5", "p95", "vmin", "vmax", "vsum", "npx")
+
+
+def masked_stats_batched(
+    img: torch.Tensor,      # (..., H, W) float32
+    mask: torch.Tensor,     # (..., H, W) bool, broadcasting against img
+    p_lo1000: int = 5000,
+    p_hi1000: int = 95000,
+) -> Dict[str, torch.Tensor]:
+    """:func:`masked_stats` over the trailing (H, W) of every leading
+    index: each statistic comes back with the leading shape."""
+    img, mask = torch.broadcast_tensors(img, mask)
+    x = img.reshape(*img.shape[:-2], -1)
+    valid = mask.reshape(x.shape) & torch.isfinite(x)
+    n = valid.sum(dim=-1, dtype=torch.int32)
+    nf = torch.clamp(n.to(torch.float32), min=1.0)
+
+    # where(), never x * mask: a non-finite pixel anywhere in the tile
+    # would poison a product sum (NaN * 0 = NaN)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    inf = torch.full((), float("inf"), dtype=x.dtype, device=x.device)
+    total = torch.where(valid, x, zero).sum(dim=-1)
+    mean = total / nf
+    var = torch.where(valid, (x - mean[..., None]) ** 2, zero).sum(dim=-1) / nf
+    vmin = torch.where(valid, x, inf).amin(dim=-1)
+    vmax = torch.where(valid, x, -inf).amax(dim=-1)
+
+    xs = torch.sort(torch.where(valid, x, inf), dim=-1).values
+
+    empty = n == 0
+    nan = torch.full((), float("nan"), dtype=x.dtype, device=x.device)
+
+    def nanify(v):
+        return torch.where(empty, nan, v)
+
+    return {
+        "mean": nanify(mean),
+        "median": quantile_from_sorted(xs, n, 50000),
+        "std": nanify(torch.sqrt(var)),
+        "p5": quantile_from_sorted(xs, n, p_lo1000),
+        "p95": quantile_from_sorted(xs, n, p_hi1000),
+        "vmin": nanify(vmin),
+        "vmax": nanify(vmax),
+        "vsum": nanify(total),
+        "npx": n,
+    }
+
+
+def masked_stats(img: torch.Tensor, mask: torch.Tensor, p_lo1000: int = 5000,
+                 p_hi1000: int = 95000) -> Dict[str, torch.Tensor]:
+    """All nine reference statistics of img[mask] (finite values only)."""
+    return masked_stats_batched(img, mask, p_lo1000, p_hi1000)
+
+
+def roi_stats(imgs: torch.Tensor, masks: torch.Tensor, p_lo1000: int = 5000,
+              p_hi1000: int = 95000) -> Dict[str, torch.Tensor]:
+    """Stats for every (channel, roi) pair.
+
+    imgs: (C, H, W) float32; masks: (N, H, W) bool -> dict of (C, N)
+    tensors (npx is (C, N) int32; identical across channels unless NaNs
+    differ)."""
+    return masked_stats_batched(imgs[:, None], masks[None], p_lo1000, p_hi1000)

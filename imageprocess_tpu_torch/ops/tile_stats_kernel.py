@@ -27,7 +27,6 @@ import torch
 
 from ..geom.rasterize import rasterize_polygons
 from ..kernels.build import load_library
-from .roistats import FRET_SLICE
 from .stats import STAT_FIELDS
 from .tilestats_u16 import tile_stats_u16_batched
 
@@ -46,7 +45,11 @@ def reset_launches() -> None:
 
 def _check(tiles, local_polys, roi_valid, bgs):
     if tiles.dtype != torch.uint16:
-        raise NotImplementedError(FRET_SLICE)
+        raise NotImplementedError(
+            f"the packed u16 step takes uint16 tiles, got {tiles.dtype}: float "
+            "tiles take ops.roistats.tile_stats_from_gathered (the "
+            "roistats_f32 kernel), and non-u16 frames in the intensity runner "
+            "need the serial intensity path (ROADMAP Queue 1 item 7)")
     if tiles.dim() != 5 or tiles.shape[-1] != tiles.shape[-2]:
         raise ValueError(f"tiles must be (B, N, C, t, t), got {tuple(tiles.shape)}")
     B, N, C, _, _ = tiles.shape

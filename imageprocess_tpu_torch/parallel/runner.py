@@ -1,7 +1,8 @@
 """Batched execution on one device, and the host streaming protocol.
 
 Port of ``imageprocess_tpu/parallel/runner.py``: ``batched_tile_stats_step``
-(the minimum-transfer intensity step) and the pure-Python protocol shared
+(the minimum-transfer intensity step), its FRET counterpart
+``batched_fret_tile_stats_step`` and the pure-Python protocol shared
 by the batched runners — ``stream_batches``, ``PrefetchLoader``,
 ``make_autoscaler``, ``LoadError`` and ``EmitFetchError`` — unchanged.
 Mesh and sharding code wait for the multi-device slice.
@@ -15,6 +16,9 @@ from typing import Callable, Iterator, List, Sequence
 
 import torch
 
+from ..ops.roi_stats_kernel import (
+    fret_tile_stats_packed, fret_tile_stats_packed_plain,
+)
 from ..ops.tile_stats_kernel import tile_stats_packed, tile_stats_packed_plain
 
 
@@ -39,6 +43,31 @@ def batched_tile_stats_step(
                                        clip_neg=clip_neg)
     return tile_stats_packed(tiles, local_polys, roi_valid, bgs,
                              clip_neg=clip_neg)
+
+
+def batched_fret_tile_stats_step(
+    tiles: torch.Tensor,        # (B, N, 2, t, t) raw u16 [donor, acceptor]
+    local_polys: torch.Tensor,  # (B, N, V, 2) float32 tile-local
+    roi_valid: torch.Tensor,    # (B, N) bool
+    bgs: torch.Tensor,          # (B, 2) float32 host backgrounds
+    eps: torch.Tensor,          # (B,) float32 host epsilons
+    *,
+    clip_neg: bool = True,
+    flip: bool = False,
+) -> torch.Tensor:
+    """Whole-batch minimum-transfer FRET step (the device part of the JAX
+    ``batched_fret_tile_stats`` plus the runner's packing): rasterize, form
+    [ratio, donor, acceptor] per tile, quantify.  Returns the packed
+    (B, 10, 3, N) float32 result (the nine ``STAT_FIELDS`` rows, then the
+    area).
+
+    CUDA tensors launch the hand kernel (``fret_tile_stats_packed``, which
+    raises rather than fall back); CPU tensors take its plain version."""
+    if tiles.device.type == "cpu":
+        return fret_tile_stats_packed_plain(tiles, local_polys, roi_valid, bgs,
+                                            eps, clip_neg=clip_neg, flip=flip)
+    return fret_tile_stats_packed(tiles, local_polys, roi_valid, bgs, eps,
+                                  clip_neg=clip_neg, flip=flip)
 
 
 def make_autoscaler(loader, batch_size: int, cap: int = 32):

@@ -47,6 +47,9 @@ def test_main_path_import_pulls_in_no_jax_pil_pandas():
         "import imageprocess_tpu_torch.pipelines.intensity\n"
         "import imageprocess_tpu_torch.parallel.runner\n"
         "import imageprocess_tpu_torch.ops.tile_stats_kernel\n"
+        "import imageprocess_tpu_torch.pipelines.fret\n"
+        "import imageprocess_tpu_torch.ops.roi_stats_kernel\n"
+        "import imageprocess_tpu_torch.ops.ratio\n"
         "import imageprocess_tpu_torch.kernels.build\n"
         "import chip_smoke\n"
         "mods = [m for m in sys.modules if m.split('.')[0] in "

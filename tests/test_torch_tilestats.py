@@ -180,11 +180,24 @@ def test_tile_stats_from_gathered_matches_jax():
 
 
 def test_float_tiles_name_the_fret_slice():
+    """Float tiles take the float statistics the FRET slice brought
+    (equal to the JAX float branch); the packed u16 step still refuses
+    them, naming the serial intensity path."""
+    from imageprocess_tpu.ops.roistats import tile_stats_from_gathered as j_tsg
+
     tiles, lp, valid, bgs = _batch(5, B=2)
-    with pytest.raises(NotImplementedError, match="FRET"):
-        roistats.tile_stats_from_gathered(
-            torch.from_numpy(tiles[0]).float(), torch.from_numpy(lp[0]),
-            torch.from_numpy(valid[0]), torch.from_numpy(bgs[0]))
+    ws, wa = j_tsg(jnp.asarray(tiles[0].astype(np.float32)), jnp.asarray(lp[0]),
+                   jnp.asarray(valid[0]), jnp.asarray(bgs[0]))
+    gs, ga = roistats.tile_stats_from_gathered(
+        torch.from_numpy(tiles[0]).float(), torch.from_numpy(lp[0]),
+        torch.from_numpy(valid[0]), torch.from_numpy(bgs[0]))
+    np.testing.assert_array_equal(ga.numpy(), np.asarray(wa))
+    _assert_stats({k: v.numpy() for k, v in gs.items()},
+                  {k: np.asarray(v) for k, v in ws.items()})
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        tsk.tile_stats_packed_plain(
+            torch.from_numpy(tiles).float(), torch.from_numpy(lp),
+            torch.from_numpy(valid), torch.from_numpy(bgs))
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
