@@ -5,14 +5,16 @@ Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py
 
-It drives the port's two main paths on the card, at the shapes of the
+It drives the port's three main paths on the card, at the shapes of the
 repo's benchmark (16 stages x channels (2, 3) of 1536 x 2048 u16 frames
 with 18 circular ROIs of radius 60 each, 288 rows per run): the batched
 tables-only intensity runner
-(``imageprocess_tpu_torch.pipelines.intensity.run_intensity_batched``) and
+(``imageprocess_tpu_torch.pipelines.intensity.run_intensity_batched``),
 the batched FRET tables runner
 (``imageprocess_tpu_torch.pipelines.fret.run_fret_batched``, channels 2/3
-as donor/acceptor).  Phases, each of which exits non-zero on failure:
+as donor/acceptor) and U-Net cell segmentation of one 1536 x 2048 frame
+(``imageprocess_tpu_torch.segment.cellseg.segment_frame_unet``, the bundled
+golden checkpoint).  Phases, each of which exits non-zero on failure:
 
 1. the card's name and power limit;
 2. build ``kernels/tilestats_u16.cu`` and ``kernels/roistats_f32.cu`` with
@@ -38,7 +40,15 @@ as donor/acceptor).  Phases, each of which exits non-zero on failure:
 6. a small experiment with a key of another frame shape (the runners'
    per-key path) gives the same rows on the card as on the CPU, for each
    runner;
-7. kernel and plain times per chunk, with CUDA events.
+7. segmentation: a deterministic synthcells "fluor" frame (u16), segmented
+   to polygons once warm and three times timed (e2e Mpix/s = H*W / wall
+   seconds, frame on the host to polygons), once more with per-phase CUDA
+   events and the CCL round counts.  Checks: the card's label map agrees
+   with the port's on the CPU (recall and mean IoU >= 0.95 at IoU >= 0.5),
+   the card's post-process fed the CPU's network output gives the CPU's
+   label map exactly, and the generalist checkpoint finds the generator's
+   cells (recall >= 0.90, mean IoU >= 0.70 at IoU >= 0.3);
+8. kernel and plain times per chunk, with CUDA events.
 
 The last two lines of standard output are one JSON object per line: the
 kernel table, then ``{"ok": true, "device": {...}}``.  Without a card, or
@@ -875,6 +885,136 @@ def time_fret_chunk(inputs) -> dict:
             "step_turns": [sp1, sk1, sk2, sp2]}
 
 
+# ------------------------------------------------------------------ segmentation
+
+SEG_SEED = 0
+SEG_MIN_TRUE_PX = 150      # synthcells.eval_frame drops smaller true slivers
+SEG_PHASES = ("host_prepass", "upload_stretch", "tile_cut", "forward",
+              "recomposition", "remove_small_objects", "follow_flows",
+              "flow_label.histogram", "flow_label.dilation", "flow_label.ccl",
+              "flow_label.readback", "d2h", "polygons")
+
+
+def seg_frame(shape=(H, W), seed: int = SEG_SEED):
+    """A deterministic synthcells "fluor" frame at the bench's frame shape
+    (u16) and the generator's labels, with true instances below 150 px
+    dropped, as ``synthcells.eval_frame`` does."""
+    import numpy as np
+
+    from imageprocess_tpu_torch._host import synthcells
+
+    rng = np.random.default_rng(100_000 + seed)
+    img, labels = synthcells.synth_frame(rng, *shape, "fluor",
+                                         r_range=(10.0, 32.0))
+    ids, counts = np.unique(labels[labels > 0], return_counts=True)
+    labels = np.where(np.isin(labels, ids[counts < SEG_MIN_TRUE_PX]), 0, labels)
+    return np.clip(img, 0, 65535).astype(np.uint16), labels
+
+
+def match_label_maps(pred, true, iou_threshold: float) -> dict:
+    """Greedy IoU matching of the instances of two label maps (0 =
+    background), largest IoU first: recall = matched / true instances,
+    mean IoU over the matched pairs."""
+    import numpy as np
+
+    p = pred.astype(np.int64).ravel()
+    t = true.astype(np.int64).ravel()
+    n_p, n_t = int(p.max()) + 1, int(t.max()) + 1
+    inter = np.bincount(t * n_p + p, minlength=n_t * n_p).reshape(n_t, n_p)
+    area_t, area_p = inter.sum(1), inter.sum(0)
+    iou = inter / np.maximum(area_t[:, None] + area_p[None, :] - inter, 1)
+    iou[0, :] = 0.0
+    iou[:, 0] = 0.0
+    used_t, used_p, matched = set(), set(), []
+    for k in np.argsort(-iou, axis=None):
+        ti, pi = divmod(int(k), n_p)
+        if iou[ti, pi] < iou_threshold:
+            break
+        if ti not in used_t and pi not in used_p:
+            used_t.add(ti)
+            used_p.add(pi)
+            matched.append(iou[ti, pi])
+    n_true = int((area_t[1:] > 0).sum())
+    return {"recall": len(matched) / max(n_true, 1),
+            "mean_iou": float(np.mean(matched)) if matched else 0.0,
+            "n_true": n_true, "n_pred": int((area_p[1:] > 0).sum()),
+            "matched": len(matched)}
+
+
+def run_seg_path(device: str, reps: int = 3, shape=(H, W)) -> dict:
+    """U-Net segmentation of one bench-shaped frame on the card through
+    ``segment_frame_unet`` (golden checkpoint, tile 256, overlap 32,
+    n_iter 120): a warm run, *reps* timed runs, one run with per-phase CUDA
+    events, then the checks against the port on the CPU and the
+    generalist's quality against the generator's labels."""
+    import numpy as np
+    import torch
+
+    from imageprocess_tpu_torch.models.checkpoint import load_unet
+    from imageprocess_tpu_torch.segment import auto, cellseg
+    from imageprocess_tpu_torch.timing import PhaseTimer
+
+    frame, truth = seg_frame(shape)
+    cfg = auto.AutoSegConfig(backend="unet")
+    model, tile = auto._unet_model(cfg, device)
+    mpix = frame.size / 1e6
+
+    def one_run(timer=None):
+        t0 = time.perf_counter()
+        kw = {} if timer is None else {"timer": timer}
+        polys = cellseg.segment_frame_unet(frame, model, tile=tile,
+                                           device=device, **kw)
+        torch.cuda.synchronize()
+        return polys, time.perf_counter() - t0
+
+    polys, warm = one_run()
+    times = [one_run()[1] for _ in range(reps)]
+    timer = PhaseTimer(device)
+    polys_t, traced = one_run(timer)
+    phases = timer.times_ms()
+    if not polys or len(polys_t) != len(polys):
+        raise SmokeError(f"seg: {len(polys)} polygons, then {len(polys_t)}")
+    for p in polys:
+        if p.ndim != 2 or p.shape[1] != 2 or len(p) < 3 or not np.isfinite(p).all():
+            raise SmokeError(f"seg: malformed polygon of shape {p.shape}")
+    missing = [ph for ph in SEG_PHASES if ph not in phases]
+    if missing:
+        raise SmokeError(f"seg: phases not seen: {missing}")
+
+    # the card against the port on the CPU, same frame and weights
+    lab_card = cellseg.label_frame_unet(frame, model, tile=tile, device=device)
+    cpu_model, _ = load_unet(auto.DEFAULT_UNET_CKPT)
+    tiles, keep, ys, xs = cellseg.frame_tiles(frame, tile, device="cpu")
+    out_cpu = cellseg.forward_tiles(cpu_model, tiles)
+    post = dict(ys=ys, xs=xs, tile=tile, shape=frame.shape)
+    lab_cpu = cellseg.postprocess(out_cpu, keep, **post)[0].numpy()
+    lab_fed = cellseg.postprocess(out_cpu.to(device), keep, **post)[0].cpu().numpy()
+    if lab_card.shape != frame.shape or lab_card.dtype != np.uint16:
+        raise SmokeError(f"seg: label map {lab_card.shape} {lab_card.dtype}")
+    if not np.array_equal(lab_fed, lab_cpu):
+        raise SmokeError("seg: the card's post-process fed the CPU's network "
+                         f"output differs from the CPU's on "
+                         f"{int((lab_fed != lab_cpu).sum())} pixels")
+    vs_cpu = match_label_maps(lab_card, lab_cpu, 0.5)
+    if vs_cpu["recall"] < 0.95 or vs_cpu["mean_iou"] < 0.95:
+        raise SmokeError(f"seg: card vs CPU label maps {vs_cpu}")
+    # the generalist against the generator's labels (the "fluor" floors)
+    gmodel, gtile = auto._unet_model(auto.AutoSegConfig(checkpoint="general"),
+                                     device)
+    lab_gen = cellseg.label_frame_unet(frame, gmodel, tile=gtile, device=device)
+    vs_truth = match_label_maps(lab_gen, truth, 0.3)
+    if vs_truth["recall"] < 0.90 or vs_truth["mean_iou"] < 0.70:
+        raise SmokeError(f"seg: generalist vs generator labels {vs_truth}")
+    return {
+        "polygons": len(polys), "warm_s": warm, "steady_s": min(times),
+        "times_s": times, "warm_mpix_s": mpix / warm,
+        "steady_mpix_s": mpix / min(times), "traced_s": traced,
+        "phases_ms": phases, "counts": dict(timer.counts),
+        "tiles_total": len(ys) * len(xs), "vs_cpu": vs_cpu,
+        "vs_truth": vs_truth, "true_cells": int(vs_truth["n_true"]),
+    }
+
+
 def build_kernels() -> None:
     """Build every kernel, one nvcc each, all started together."""
     from imageprocess_tpu_torch.kernels import build
@@ -961,6 +1101,29 @@ def main(argv) -> int:
     n = check_fret_serial_path(os.path.join(data, "serial_fret"))
     print(f"FRET serial-path check ok: {n} rows (one pair of another frame "
           "shape) equal on the card and on the CPU")
+    seg = run_seg_path("cuda")
+    print(f"seg path ok: {H}x{W} u16 synthcells fluor frame, golden U-Net "
+          f"(tile 256, overlap 32, n_iter 120), {seg['polygons']} polygons; "
+          f"card vs CPU label maps at IoU>=0.5: recall {seg['vs_cpu']['recall']:.4f}, "
+          f"mean IoU {seg['vs_cpu']['mean_iou']:.4f} ({seg['vs_cpu']['n_pred']} vs "
+          f"{seg['vs_cpu']['n_true']} instances); card post-process fed the CPU's "
+          f"network output == CPU's label map; generalist vs generator labels "
+          f"at IoU>=0.3: recall {seg['vs_truth']['recall']:.4f}, mean IoU "
+          f"{seg['vs_truth']['mean_iou']:.4f} ({seg['true_cells']} true cells)")
+    print(f"seg e2e on {card}: warm {seg['warm_mpix_s']:.2f} Mpix/s "
+          f"({seg['warm_s']:.4f} s), steady {seg['steady_mpix_s']:.2f} Mpix/s "
+          f"(best of {[round(x, 4) for x in seg['times_s']]} s), frame to polygons")
+    ph, cnt = seg["phases_ms"], seg["counts"]
+    print(f"seg phases on {card} (CUDA events, one run of "
+          f"{seg['traced_s']:.4f} s): " + ", ".join(
+              f"{name} {ph[name]:.3f} ms" for name in SEG_PHASES)
+          + f"; forward tiles {cnt.get('forward.tiles')} of {seg['tiles_total']}"
+          f"; CCL rounds: remove_small_objects "
+          f"{cnt.get('remove_small_objects.rounds')}, flow_label "
+          f"{cnt.get('flow_label.ccl.rounds')}")
+    print(json.dumps({"seg": {k: seg[k] for k in (
+        "polygons", "warm_s", "steady_s", "times_s", "steady_mpix_s",
+        "phases_ms", "counts", "vs_cpu", "vs_truth")}, "card": card}))
     workers = max(8, (os.cpu_count() or 1) * 2)
     dec = time_host_decode(data, workers)
     print(f"host share alone on this machine ({os.cpu_count()} cores, "

@@ -2,7 +2,9 @@
 
 The port shares the reference's host tier instead of copying it: the
 native TIFF decoder (ctypes over ``native/tiff_lzw.cpp``), the filename
-grammar, the message catalog, polygon padding and the XLSX writer.  Those
+grammar, the message catalog, polygon padding, the XLSX writer, the label
+map -> polygon conversion (``contours.masks_to_polygons``, cv2 imported
+inside the function) and the synthetic cell fields (``synthcells``).  Those
 modules import only the standard library and numpy, but their packages do
 not: ``imageprocess_tpu/__init__.py`` tries ``import jax``,
 ``geom/__init__.py`` imports the jax rasterizer, ``core/__init__.py`` pulls
@@ -54,3 +56,5 @@ naming = _load("naming", os.path.join("core", "naming.py"))
 i18n = _load("i18n", os.path.join("core", "i18n.py"))
 polygon = _load("polygon", os.path.join("geom", "polygon.py"))
 xlsxlite = _load("xlsxlite", os.path.join("report", "xlsxlite.py"))
+contours = _load("contours", os.path.join("morphology", "contours.py"))
+synthcells = _load("synthcells", os.path.join("models", "synthcells.py"))

@@ -1,6 +1,7 @@
 """The port imports torch and never jax: no port source names ``jax`` or
-the ``imageprocess_tpu`` package, and importing its main path pulls in
-neither jax, PIL nor pandas (the card's machine is not promised them)."""
+the ``imageprocess_tpu`` package, and importing its main paths pulls in
+neither jax, flax, PIL, pandas nor matplotlib (the card's machine is not
+promised them)."""
 
 import ast
 import json
@@ -51,9 +52,17 @@ def test_main_path_import_pulls_in_no_jax_pil_pandas():
         "import imageprocess_tpu_torch.ops.roi_stats_kernel\n"
         "import imageprocess_tpu_torch.ops.ratio\n"
         "import imageprocess_tpu_torch.kernels.build\n"
+        "import imageprocess_tpu_torch.models.checkpoint\n"
+        "import imageprocess_tpu_torch.morphology.binary\n"
+        "import imageprocess_tpu_torch.morphology.ccl\n"
+        "import imageprocess_tpu_torch.ops.view\n"
+        "import imageprocess_tpu_torch.segment.auto\n"
+        "import imageprocess_tpu_torch.segment.cellseg\n"
+        "import imageprocess_tpu_torch.segment.flows\n"
         "import chip_smoke\n"
         "mods = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'PIL', 'pandas', 'matplotlib', 'imageprocess_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'PIL', 'pandas', 'matplotlib', "
+        "'imageprocess_tpu')]\n"
         "print(json.dumps(mods))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -67,7 +76,8 @@ def test_host_leaf_modules_load_by_path():
     under private names, and dataclasses in them work."""
     from imageprocess_tpu_torch import _host
 
-    for name in ("native", "naming", "i18n", "polygon", "xlsxlite"):
+    for name in ("native", "naming", "i18n", "polygon", "xlsxlite",
+                 "contours", "synthcells"):
         mod = getattr(_host, name)
         assert sys.modules[mod.__name__] is mod
         assert mod.__file__.startswith(os.path.join(REPO, "imageprocess_tpu", ""))
