@@ -22,15 +22,21 @@ golden checkpoint).  Phases, each of which exits non-zero on failure:
    together;
 3. hold each kernel to its plain PyTorch version on the card.
    ``tilestats_u16``: random, tie-heavy, empty-ROI and padded-lane cases,
-   the bench tile (t = 128, above 48 KB of shared memory) and a tile above
-   the shared-memory limit.  ``roistats_f32``, in both of its forms (a
-   full frame with tile origins, a stack of tiles): random values with
+   the bench tile (t = 128) in both kernel variants and a t = 272 tile
+   from device memory.  ``roistats_f32``, in both of its forms (a full
+   frame with tile origins, a stack of tiles): random values with
    negatives, NaN and +-inf inside and outside the masks, ties and signed
    zeros, empty masks and padded lanes, unaligned origins into a bench
    frame, the bench FRET chunk (4 x 18 tiles x 3 channels, t = 128) in
-   both kernel variants, and a tile above the shared-memory limit.  Masks,
-   npx, area, vmin, vmax and the quantiles must be equal; mean, std and
-   vsum within 1e-5 relative;
+   its three kernel variants (keys and mask in shared memory, the keys
+   alone, device memory), a T = 224 tile (keys alone by default) and a
+   tile above the shared-memory limit.  Then the cases that stress a radix
+   select, for both kernels in every variant: every value equal, every value in one high-byte (u16) or
+   top-byte (f32 key) bin, values over 0..65535 and keys from -inf to
+   +inf with subnormals and +-0, n = 0, 1 and 2, ranks on either side of a
+   bin edge, C = 1, 2 and 3, tiles of 36, 37 and 50 pixels (unaligned and
+   row-wise staging).  Masks, npx, area, vmin, vmax and the quantiles must
+   be equal; mean, std and vsum within 1e-5 relative;
 4. write the dataset (under ``imageprocess_tpu_torch/_build/``);
 5. run each runner on the card: the first run checks every chunk's kernel
    output against the plain version on the same device tensors and counts
@@ -48,11 +54,29 @@ golden checkpoint).  Phases, each of which exits non-zero on failure:
    the card's post-process fed the CPU's network output gives the CPU's
    label map exactly, and the generalist checkpoint finds the generator's
    cells (recall >= 0.90, mean IoU >= 0.70 at IoU >= 0.3);
-8. kernel and plain times per chunk, with CUDA events.
+8. kernel and plain times per chunk: each kernel's time per call through
+   its Python wrapper against the plain version's (CUDA events around 50
+   calls, in turns plain / kernel / kernel / plain), the kernel's device
+   time by CUDA graph replay (the wrapper's host time left out), the grid
+   and resident CTAs per SM, and the bound: the larger of the bytes the
+   kernel must move (inputs read once, outputs written once, counted from
+   the launched tensors) at 3.35 TB/s and its float32 operations at 67
+   TFLOP/s (the H100 SXM's data-sheet rates).
 
 The last two lines of standard output are one JSON object per line: the
-kernel table, then ``{"ok": true, "device": {...}}``.  Without a card, or
-outside a checkout, it prints no result and exits non-zero.
+kernel table (``ms`` per call, ``device_ms`` by graph replay, ``bound_ms``,
+``bound_by``, ``library_ms`` -- null: no single PyTorch call computes
+masked moments with six exact order statistics -- and
+``launches_per_run``), then ``{"ok": true, "device": {...}}``.  Without a
+card, or outside a checkout, it prints no result and exits non-zero.
+
+``python3 chip_smoke.py --kernels-only`` stops after phase 3.
+``python3 chip_smoke.py --kernel-times [--root DIR]`` only builds and
+times the two kernels of the checkout at DIR (default: this one) on
+synthetic bench-like inputs -- the intensity chunk and FRET stacks of
+T = 128 ... 240 -- per call and by graph replay, each launch
+checked against its plain version, and prints one JSON line; run with the
+roots of two checkouts in one process each, it compares them on one card.
 """
 
 from __future__ import annotations
@@ -61,6 +85,7 @@ import concurrent.futures as cf
 import json
 import math
 import os
+import re
 import shutil
 import struct
 import subprocess
@@ -107,8 +132,9 @@ def card_line() -> str:
 def compare_packed(got, want, what: str, exact=EXACT_ROWS,
                    moments=MOMENT_ROWS) -> dict:
     """Kernel vs plain statistics on one device, the statistic on axis 1
-    ((B, 10, C, N) packed, or (R, 9, C) rows): *exact* rows must be equal
-    by value (NaN where NaN), *moments* rows within REL_TOL."""
+    ((B, 10, C, N) packed, or (R, 9, C) rows): NaN where NaN, *exact* rows
+    equal by value (an infinite quantile only where both are), *moments*
+    rows finite and within REL_TOL."""
     import torch
 
     g, w = got.detach().cpu().double(), want.detach().cpu().double()
@@ -117,20 +143,23 @@ def compare_packed(got, want, what: str, exact=EXACT_ROWS,
     nan_g, nan_w = torch.isnan(g), torch.isnan(w)
     if not torch.equal(nan_g, nan_w):
         raise SmokeError(f"{what}: NaN positions differ")
-    if not torch.isfinite(g[~nan_g]).all() or not torch.isfinite(w[~nan_w]).all():
-        raise SmokeError(f"{what}: infinite statistics")
     ok = ~nan_w
     exact = list(exact)
-    d_exact = (g[:, exact] - w[:, exact]).abs()[ok[:, exact]]
-    if d_exact.numel() and d_exact.max().item() != 0.0:
-        raise SmokeError(f"{what}: exact rows differ by {d_exact.max().item()}")
+    ge, we = g[:, exact][ok[:, exact]], w[:, exact][ok[:, exact]]
+    if not torch.equal(ge, we):
+        raise SmokeError(f"{what}: exact rows differ by "
+                         f"{(ge - we).abs().nan_to_num(nan=float('inf')).max().item()}")
     mom = list(moments)
     gm, wm = g[:, mom][ok[:, mom]], w[:, mom][ok[:, mom]]
+    if not torch.isfinite(gm).all() or not torch.isfinite(wm).all():
+        raise SmokeError(f"{what}: infinite moments")
     rel = ((gm - wm).abs() / wm.abs().clamp(min=1e-9))
     max_rel = rel.max().item() if rel.numel() else 0.0
     if max_rel > REL_TOL:
         raise SmokeError(f"{what}: moments differ by {max_rel:.3e} rel > {REL_TOL}")
-    diff = (g - w).abs()[ok]
+    rows = exact + mom
+    sel = ok[:, rows] & torch.isfinite(w[:, rows])
+    diff = (g[:, rows] - w[:, rows]).abs()[sel]
     return {"max_abs_err": diff.max().item() if diff.numel() else 0.0,
             "max_rel_err_moments": max_rel}
 
@@ -161,7 +190,7 @@ def kernel_cases(device):
     import numpy as np
     import torch
 
-    from imageprocess_tpu_torch._host import polygon
+    from imageprocess_tpu_torch.geom import polygon
 
     rng = np.random.default_rng(7)
     cases = []
@@ -217,8 +246,9 @@ def kernel_cases(device):
     B, N, C, t = 1, 2, 3, 272
     tiles = rng.integers(0, 65536, (B, N, C, t, t)).astype(np.uint16)
     polys = [[_circle(135.5, 135.5, 130), _circle(100.5, 140.5, 80)]]
-    add("t=272 above the shared-memory limit", tiles, polys,
-        np.ones((B, N), bool), rng.uniform(0, 1000, (B, C)), False)
+    add("t=272 from device memory", tiles, polys,
+        np.ones((B, N), bool), rng.uniform(0, 1000, (B, C)), False,
+        use_smem=False)
     return cases
 
 
@@ -230,7 +260,7 @@ def check_kernel(device) -> dict:
     worst = {"max_abs_err": 0.0, "max_rel_err_moments": 0.0}
     for name, tiles, lp, valid, bgs, clip, use_smem in kernel_cases(device):
         t = tiles.shape[-1]
-        smem = tsk.kernel_uses_smem(tiles.shape[2], t, tiles.device) \
+        smem = tsk.kernel_uses_smem(t, tiles.device) \
             if use_smem is None else use_smem
         got = tsk.tile_stats_packed(tiles, lp, valid, bgs, clip_neg=clip,
                                     use_smem=use_smem)
@@ -254,9 +284,10 @@ def check_kernel(device) -> dict:
 
 
 def roistats_cases(device):
-    """(name, frames, masks, offs, use_smem) tensors on *device*, in the
+    """(name, frames, masks, offs, opts) tensors on *device*, in the
     kernel's two forms: one frame with tile origins, or a stack of tiles
-    with origin 0 (``stack_offsets``)."""
+    with origin 0 (``stack_offsets``); *opts* force a kernel variant
+    (``roi_stat_rows``'s use_smem / stage_mask)."""
     import numpy as np
     import torch
 
@@ -265,17 +296,17 @@ def roistats_cases(device):
     rng = np.random.default_rng(11)
     cases = []
 
-    def frame_form(name, img, masks, offs, use_smem=None):
+    def frame_form(name, img, masks, offs, **opts):
         offs3 = np.concatenate([np.zeros((len(offs), 1), np.int32),
                                 np.asarray(offs, np.int32)], 1)
         cases.append((name, torch.from_numpy(img[None]).to(device),
                       torch.from_numpy(masks).to(device),
-                      torch.from_numpy(offs3).to(device), use_smem))
+                      torch.from_numpy(offs3).to(device), opts))
 
-    def stack_form(name, tiles, masks, use_smem=None):
+    def stack_form(name, tiles, masks, **opts):
         cases.append((name, tiles.to(device).contiguous(),
                       torch.from_numpy(masks).to(device),
-                      rsk.stack_offsets(len(masks), device), use_smem))
+                      rsk.stack_offsets(len(masks), device), opts))
 
     def origins(n, H, W, t):
         return np.stack([rng.integers(0, H - t + 1, n),
@@ -325,7 +356,13 @@ def roistats_cases(device):
         _circle_mask(128, 63.5, 63.5, ROI_RADIUS), (4 * N_ROI, 128, 128)).copy()
     masks[-3:] = False                                        # padded lanes
     stack_form("bench FRET chunk", stack, masks)
-    stack_form("bench FRET chunk from device memory", stack, masks, False)
+    stack_form("bench FRET chunk, keys staged, mask from device memory", stack,
+               masks, stage_mask=False)
+    stack_form("bench FRET chunk from device memory", stack, masks, use_smem=False)
+    # T = 224: the keys fit the opt-in shared memory, keys and mask do not
+    tiles = torch.from_numpy(rng.normal(900, 300, (4, 3, 224, 224)).astype(np.float32))
+    masks = np.stack([_circle_mask(224, 111.5, 111.5, 108 - 9 * i) for i in range(4)])
+    stack_form("T=224, keys staged", tiles, masks)
     # above the opt-in shared-memory limit: 272^2 f32 keys = 296 KB
     tiles = torch.from_numpy(rng.normal(1.0, 0.3, (2, 3, 272, 272)).astype(np.float32))
     masks = np.stack([_circle_mask(272, 135.5, 135.5, 130),
@@ -347,11 +384,10 @@ def check_roistats(device) -> dict:
     from imageprocess_tpu_torch.ops import roi_stats_kernel as rsk
 
     worst = {"max_abs_err": 0.0, "max_rel_err_moments": 0.0}
-    for name, frames, masks, offs, use_smem in roistats_cases(device):
+    for name, frames, masks, offs, opts in roistats_cases(device):
         T = masks.shape[-1]
-        smem = rsk.kernel_uses_smem(T, frames.device) if use_smem is None \
-            else use_smem
-        got = rsk.roi_stat_rows(frames, masks, offs, use_smem=use_smem)
+        smem, staged_mask = rsk.kernel_variant(T, frames.device, **opts)
+        got = rsk.roi_stat_rows(frames, masks, offs, **opts)
         want = rsk.roi_stat_rows_plain(frames, masks, offs)
         torch.cuda.synchronize()
         err = compare_packed(got.movedim(-1, 1), want.movedim(-1, 1), name,
@@ -359,10 +395,171 @@ def check_roistats(device) -> dict:
         for k in worst:
             worst[k] = max(worst[k], err[k])
         print(f"roistats check ok: {name} frames={tuple(frames.shape)} "
-              f"tiles={tuple(masks.shape)} smem={smem} "
+              f"tiles={tuple(masks.shape)} smem={smem} stage_mask={staged_mask} "
               f"npx_sum={int(want[..., 8].nansum().item())} "
               f"max_abs_err={err['max_abs_err']} "
               f"max_rel_err_moments={err['max_rel_err_moments']}")
+    return worst
+
+
+def _edge_values(u16: bool):
+    """102 sorted values whose ranks 5|6 (p5), 50|51 (median) and 95|96
+    (p95, with weights 0.05, 0.5 and 0.95) fall on either side of a radix
+    bin edge: a high-byte edge for u16, a top-, second- and low-byte edge
+    of the f32 sort keys."""
+    import numpy as np
+
+    if u16:
+        v = np.full(102, 1000, np.uint16)
+        v[:6], v[6:50], v[50], v[51], v[52:95] = 255, 300, 511, 512, 700
+        v[95], v[96] = 767, 768
+        return v
+    f = np.float32
+    v = np.full(102, 2000.0, f)
+    v[:6], v[6:50] = 7.5, 8.5                       # 8.0 starts a top-byte bin
+    v[50] = np.nextafter(f(9.0), f(0.0))             # 0x410fffff | 0x41100000
+    v[51], v[52:95] = 9.0, 500.0
+    v[95], v[96] = 1000.0, np.nextafter(f(1000.0), f(np.inf))
+    return v
+
+
+def _place(rng, n, t, vals=None, C=1, fill=0):
+    """A t x t mask with n pixels set at random places and, with *vals*,
+    (C, t, t) tiles holding a shuffle of them there per channel (everything
+    else *fill*)."""
+    import numpy as np
+
+    idx = rng.choice(t * t, size=n, replace=False)
+    mask = np.zeros(t * t, bool)
+    mask[idx] = True
+    if vals is None:
+        return mask.reshape(t, t)
+    tiles = np.full((C, t * t), fill, vals.dtype)
+    for c in range(C):
+        tiles[c, idx] = rng.permutation(vals)
+    return mask.reshape(t, t), tiles.reshape(C, t, t)
+
+
+def radix_cases_u16():
+    """(name, tiles (B, N, C, t, t) u16, masks (B, N, t, t) bool, bgs (B, C))
+    numpy cases that stress the u16 radix select."""
+    import numpy as np
+
+    rng = np.random.default_rng(23)
+    cases = []
+    for C, t in ((1, 64), (3, 50), (2, 37), (3, 128)):
+        B, N = 2, 3
+        masks = rng.random((B, N, t, t)) > 0.3
+        bgs = rng.uniform(0, 300, (B, C)).astype(np.float32)
+        # all equal, at an integral background: the sums are exact, so the
+        # std is 0 in both versions (not two different rounding residues)
+        tiles = np.full((B, N, C, t, t), 1000, np.uint16)
+        cases.append((f"all equal C={C} t={t}", tiles, masks,
+                      np.full((B, C), 200.0, np.float32)))
+        tiles = rng.integers(256, 512, (B, N, C, t, t)).astype(np.uint16)
+        cases.append((f"one high-byte bin 256..511 C={C} t={t}", tiles, masks, bgs))
+        tiles = rng.integers(0, 65536, (B, N, C, t, t)).astype(np.uint16)
+        tiles[..., 0, :3] = [0, 65535, 65535]
+        cases.append((f"0..65535 C={C} t={t}", tiles, masks, bgs))
+        # n = 0, 1, 2 and 102 values with ranks on bin edges
+        masks = np.zeros((1, 4, t, t), bool)
+        tiles = rng.integers(0, 65536, (1, 4, C, t, t)).astype(np.uint16)
+        for i, n in ((1, 1), (2, 2)):
+            masks[0, i] = _place(rng, n, t)
+        masks[0, 3], tiles[0, 3] = _place(rng, 102, t, _edge_values(True), C,
+                                          fill=9)
+        cases.append((f"n=0,1,2 + bin-edge ranks C={C} t={t}", tiles, masks,
+                      rng.uniform(0, 300, (1, C)).astype(np.float32)))
+    return cases
+
+
+def radix_cases_f32():
+    """(name, frames (F, C, H, W) f32, masks (R, T, T) bool, offs (R, 3)
+    int32, the moment rows to compare) numpy cases that stress the f32
+    radix select, in both forms."""
+    import numpy as np
+
+    rng = np.random.default_rng(29)
+    f = np.float32
+    special = np.array([0.0, -0.0, 1e-45, -1e-45, 1e-40, -1e-40, 1.17e-38,
+                        -3.4e38, 3.4e38, np.inf, -np.inf, np.nan, 1.0, -1.0],
+                       f)
+    cases = []
+
+    def stack(name, tiles, masks, moments=ROW_MOMENTS):
+        R = len(masks)
+        offs = np.stack([np.arange(R), np.zeros(R), np.zeros(R)], 1)
+        cases.append((name, tiles, masks, offs.astype(np.int32), moments))
+
+    def frame(name, img, masks, origins):
+        offs = np.concatenate([np.zeros((len(origins), 1)), origins], 1)
+        cases.append((name, img[None], masks, offs.astype(np.int32), ROW_MOMENTS))
+
+    for C, T in ((1, 64), (3, 37), (3, 128)):
+        R = 4
+        masks = rng.random((R, T, T)) > 0.3
+        stack(f"all equal C={C} T={T}", np.full((R, C, T, T), 3.25, f), masks)
+        stack(f"one top-byte bin [2, 8) C={C} T={T}",
+              rng.uniform(2.0, 8.0, (R, C, T, T)).astype(f), masks)
+        mag = 10.0 ** rng.uniform(-44, 38, (R, C, T, T))
+        wide = (mag * rng.choice([-1.0, 1.0], mag.shape)).astype(f)
+        pick = rng.random(wide.shape) < 0.2
+        wide[pick] = rng.choice(special, int(pick.sum()))
+        # sums and squares of +-3.4e38 overflow in any order: the order
+        # statistics, vmin, vmax and npx are what this case holds
+        stack(f"-inf..+inf, subnormals, +-0 C={C} T={T}", wide, masks, ())
+        masks = np.zeros((4, T, T), bool)
+        tiles = rng.normal(0, 100, (4, C, T, T)).astype(f)
+        for i, n in ((1, 1), (2, 2)):
+            masks[i] = _place(rng, n, T)
+        masks[3], tiles[3] = _place(rng, 102, T, _edge_values(False), C,
+                                    fill=f(np.nan))
+        stack(f"n=0,1,2 + bin-edge ranks C={C} T={T}", tiles, masks)
+    # frame form: rows staged by cp.async (W, T and origins multiples of 4)
+    # or read row by row (W = 101, T = 37, odd origins)
+    for H, W, T, odd in ((120, 100, 36, False), (120, 100, 36, True),
+                         (90, 101, 37, True)):
+        img = rng.normal(50, 30, (3, H, W)).astype(f)
+        img[rng.random(img.shape) < 0.02] = np.nan
+        masks = rng.random((5, T, T)) > 0.4
+        org = np.stack([rng.integers(0, H - T + 1, 5), rng.integers(0, W - T + 1, 5)], 1)
+        org = org | 1 if odd else org & ~3
+        frame(f"frame form H={H} W={W} T={T} {'odd' if odd else 'aligned'} origins",
+              img, masks, np.minimum(org, [H - T, W - T]))
+    return cases
+
+
+def check_radix(device) -> dict:
+    """The radix-select edge cases, both kernels, every variant."""
+    import torch
+
+    from imageprocess_tpu_torch.ops import roi_stats_kernel as rsk
+    from imageprocess_tpu_torch.ops import tile_stats_kernel as tsk
+
+    worst = {"max_abs_err": 0.0, "max_rel_err_moments": 0.0}
+    n_cases = 0
+    for name, tiles, masks, bgs in radix_cases_u16():
+        tl, mk, bg = (torch.from_numpy(a).to(device) for a in (tiles, masks, bgs))
+        want = tsk.packed_from_masks_plain(tl, mk, bg)
+        for use_smem in (None, False):
+            got = tsk.launch_packed(tl, mk, bg, use_smem=use_smem)
+            torch.cuda.synchronize()
+            err = compare_packed(got, want, f"tilestats {name} smem={use_smem}")
+            for k in worst:
+                worst[k] = max(worst[k], err[k])
+            n_cases += 1
+    for name, frames, masks, offs, moments in radix_cases_f32():
+        fr, mk, of = (torch.from_numpy(a).to(device) for a in (frames, masks, offs))
+        want = rsk.roi_stat_rows_plain(fr, mk, of)
+        for opts in ({}, {"stage_mask": False}, {"use_smem": False}):
+            got = rsk.roi_stat_rows(fr, mk, of, **opts)
+            torch.cuda.synchronize()
+            err = compare_packed(got.movedim(-1, 1), want.movedim(-1, 1),
+                                 f"roistats {name} {opts}", ROW_EXACT, moments)
+            for k in worst:
+                worst[k] = max(worst[k], err[k])
+            n_cases += 1
+    worst["cases"] = n_cases
     return worst
 
 
@@ -461,7 +658,7 @@ def reference_rows(folder: str, stage: str, roi_ids):
     import numpy as np
     import torch
 
-    from imageprocess_tpu_torch._host import native
+    from imageprocess_tpu_torch import native
     from imageprocess_tpu_torch.geom.rasterize import rasterize_polygons
     from imageprocess_tpu_torch.ops.roistats import (
         choose_tile, pad_local_polys, tile_offsets,
@@ -602,7 +799,7 @@ def fret_reference_rows(folder: str, stage: str, roi_ids):
     import numpy as np
     import torch
 
-    from imageprocess_tpu_torch._host import native
+    from imageprocess_tpu_torch import native
     from imageprocess_tpu_torch.geom.rasterize import rasterize_polygons
     from imageprocess_tpu_torch.ops.roistats import (
         choose_tile, pad_local_polys, tile_offsets,
@@ -739,7 +936,7 @@ def time_host_decode(folder: str, workers: int) -> float:
 
     import numpy as np
 
-    from imageprocess_tpu_torch._host import native
+    from imageprocess_tpu_torch import native
     from imageprocess_tpu_torch.ops.roistats import choose_tile, tile_offsets
 
     polys = bench_polys()
@@ -837,6 +1034,49 @@ def cuda_ms(fn, reps: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, per_graph: int = 20, reps: int = 10) -> float:
+    """Device time of one *fn()* launch: *per_graph* launches captured in a
+    CUDA graph, the graph replayed *reps* times between CUDA events, so the
+    Python wrapper's host time between launches is not counted."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * per_graph)
+
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA's data sheet)
+F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+
+
+def kernel_bound(inputs, outputs, ops: float) -> dict:
+    """The least time the card could take for a kernel's work: each input
+    read once and each output written once at the device-memory rate, or
+    *ops* float32 operations at the card's peak, whichever is longer."""
+    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return {"bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def time_chunk(inputs) -> dict:
     """Per-chunk times on the same device tensors, in turns (plain,
     kernel, kernel, plain): the kernel against the plain PyTorch version
@@ -851,8 +1091,15 @@ def time_chunk(inputs) -> dict:
     p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)
     step = lambda: tsk.tile_stats_packed(tiles, lp, valid, bgs)  # noqa: E731
     step_plain = lambda: tsk.tile_stats_packed_plain(tiles, lp, valid, bgs)  # noqa: E731
+    out = kern()
+    # per masked pixel and channel: count, - bg, clip, sum, min, max, and
+    # the variance's subtract, square, add
+    ops = 9.0 * out[:, 8].sum().item()
+    B, N, C, t, _ = tiles.shape
     return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-            "turns": [p1, k1, k2, p2],
+            "turns": [p1, k1, k2, p2], "device_ms": graph_ms(kern),
+            **kernel_bound((tiles, masks, bgs), (out,), ops),
+            "grid": B * N * C, "ctas_per_sm": tsk.occupancy(t, tiles.device),
             "rasterize_ms": cuda_ms(lambda: tsk.tile_masks(lp, valid,
                                                            tiles.shape[-1])),
             "step_ms": cuda_ms(step), "step_plain_ms": cuda_ms(step_plain)}
@@ -879,10 +1126,82 @@ def time_fret_chunk(inputs) -> dict:
         tiles, lp, valid, bgs, eps)
     sp1, sk1, sk2, sp2 = (cuda_ms(step_plain), cuda_ms(step), cuda_ms(step),
                           cuda_ms(step_plain))
+    out = kern()
+    # per valid pixel and channel: finiteness, sum, min, max, and the
+    # variance's subtract, square, add
+    ops = 7.0 * out[..., 8].sum().item()
     return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-            "turns": [p1, k1, k2, p2],
+            "turns": [p1, k1, k2, p2], "device_ms": graph_ms(kern),
+            **kernel_bound((stack, masks, offs), (out,), ops),
+            "grid": out.shape[0] * out.shape[1],
+            "ctas_per_sm": rsk.occupancy(t, tiles.device),
             "step_ms": (sk1 + sk2) / 2, "step_plain_ms": (sp1 + sp2) / 2,
             "step_turns": [sp1, sk1, sk2, sp2]}
+
+
+def kernel_times() -> dict:
+    """Per-call (CUDA events) and device (graph replay) times of both
+    kernels of the imported checkout on synthetic bench-like inputs: the
+    intensity chunk (4, 18, 2, 128, 128) and FRET stacks of 4 x 18 tiles x
+    3 channels at T = 128 ... 240 (multiples of 16, as
+    ``ops.roistats.choose_tile`` gives them, up to and around the
+    shared-memory limits), circles of radius T / 2 - 4; for a checkout
+    with ``kernel_variant`` also the device time of every roistats variant
+    that fits.  Each kernel is first held to its plain version on the
+    same inputs."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from imageprocess_tpu_torch.ops import roi_stats_kernel as rsk
+    from imageprocess_tpu_torch.ops import tile_stats_kernel as tsk
+
+    rng = np.random.default_rng(31)
+    dev = torch.device("cuda")
+    B, N = 4, N_ROI
+
+    def values(shape):  # background near 300, 3 % bright pixels
+        v = rng.normal(300.0, 40.0, shape) + 3000.0 * (rng.random(shape) > 0.97)
+        return torch.from_numpy(np.clip(v, 0, 65535).astype(np.uint16)).to(dev)
+
+    def circles(T):
+        m = _circle_mask(T, (T - 1) / 2, (T - 1) / 2, T / 2 - 4)
+        return torch.from_numpy(np.broadcast_to(m, (B * N, T, T)).copy()).to(dev)
+
+    out = {}
+    tiles, masks = values((B, N, 2, 128, 128)), circles(128).view(B, N, 128, 128)
+    bgs = torch.full((B, 2), 100.0, device=dev)
+    kern = functools.partial(tsk.launch_packed, tiles, masks, bgs)
+    compare_packed(kern(), tsk.packed_from_masks_plain(tiles, masks, bgs),
+                   "tilestats_u16 t=128")
+    out["tilestats_u16 t=128"] = {"ms": cuda_ms(kern), "device_ms": graph_ms(kern)}
+    for T in (128, 144, 160, 192, 208, 224, 240):
+        stack = rsk.fret_tile_stack(values((B, N, 2, T, T)),
+                                    torch.full((B, 2), 100.0, device=dev),
+                                    torch.full((B,), 5.0, device=dev))
+        m, offs = circles(T), rsk.stack_offsets(B * N, dev)
+        kern = functools.partial(rsk.roi_stat_rows, stack, m, offs)
+        compare_packed(kern().movedim(-1, 1),
+                       rsk.roi_stat_rows_plain(stack, m, offs).movedim(-1, 1),
+                       f"roistats_f32 T={T}", ROW_EXACT, ROW_MOMENTS)
+        row = {"ms": cuda_ms(kern), "device_ms": graph_ms(kern)}
+        if hasattr(rsk, "kernel_variant"):  # every variant that fits, forced
+            row["use_smem"], row["stage_mask"] = rsk.kernel_variant(T, dev)
+            keys_fit, both_fit = rsk.smem_fits(T, dev)
+            forced = {"device memory": {"use_smem": False}}
+            if keys_fit:
+                forced["keys staged"] = {"use_smem": True, "stage_mask": False}
+            if both_fit:
+                forced["keys and mask staged"] = {"use_smem": True, "stage_mask": True}
+            row["variants_device_ms"] = {
+                name: graph_ms(functools.partial(rsk.roi_stat_rows, stack, m, offs,
+                                                 **opts))
+                for name, opts in forced.items()}
+        else:
+            row["use_smem"] = rsk.kernel_uses_smem(T, dev)
+        out[f"roistats_f32 T={T}"] = row
+    return out
 
 
 # ------------------------------------------------------------------ segmentation
@@ -901,7 +1220,7 @@ def seg_frame(shape=(H, W), seed: int = SEG_SEED):
     dropped, as ``synthcells.eval_frame`` does."""
     import numpy as np
 
-    from imageprocess_tpu_torch._host import synthcells
+    from imageprocess_tpu_torch.models import synthcells
 
     rng = np.random.default_rng(100_000 + seed)
     img, labels = synthcells.synth_frame(rng, *shape, "fluor",
@@ -1033,17 +1352,18 @@ def build_kernels() -> None:
 
 def main(argv) -> int:
     kernels_only = "--kernels-only" in argv
+    root = os.path.abspath(argv[argv.index("--root") + 1]) if "--root" in argv else REPO
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this smoke "
               "test runs only on a CUDA card", file=sys.stderr)
         return 2
-    if not os.path.isdir(os.path.join(REPO, "imageprocess_tpu_torch")):
+    if not os.path.isdir(os.path.join(root, "imageprocess_tpu_torch")):
         print("chip_smoke: run it from a checkout of the repository "
               "(imageprocess_tpu_torch/ not found beside it)", file=sys.stderr)
         return 2
-    sys.path.insert(0, REPO)
+    sys.path.insert(0, root)
     t_start = time.perf_counter()
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -1053,17 +1373,26 @@ def main(argv) -> int:
     torch.cuda.set_device(0)
 
     build_kernels()
+    if "--kernel-times" in argv:
+        print(json.dumps({"kernel_times": kernel_times(), "root": root,
+                          "card": card}))
+        return 0
     worst = check_kernel("cuda")
     print(f"kernel checks ok: max_abs_err={worst['max_abs_err']} "
           f"max_rel_err_moments={worst['max_rel_err_moments']}")
     worst_f = check_roistats("cuda")
     print(f"roistats checks ok: max_abs_err={worst_f['max_abs_err']} "
           f"max_rel_err_moments={worst_f['max_rel_err_moments']}")
+    worst_r = check_radix("cuda")
+    print(f"radix edge cases ok: {worst_r['cases']} launches (both kernels, "
+          f"every variant) equal their plain versions, "
+          f"max_abs_err={worst_r['max_abs_err']} "
+          f"max_rel_err_moments={worst_r['max_rel_err_moments']}")
     if kernels_only:
         print(json.dumps({"kernels_only": True}))
         return 0
 
-    from imageprocess_tpu_torch._host import native
+    from imageprocess_tpu_torch import native
 
     data = os.path.join(REPO, "imageprocess_tpu_torch", "_build", "smoke_data")
     shutil.rmtree(data, ignore_errors=True)
@@ -1129,6 +1458,10 @@ def main(argv) -> int:
     print(f"host share alone on this machine ({os.cpu_count()} cores, "
           f"{workers} threads): fused decode + histogram + tiles of "
           f"{N_STAGES} keys {dec:.4f} s")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    with open(os.path.join(REPO, "imageprocess_tpu_torch", "kernels",
+                           "common.cuh"), encoding="utf-8") as f:
+        threads = int(re.search(r"kThreads = (\d+);", f.read()).group(1))
     timing = time_chunk(res["sample_inputs"])
     shape = tuple(res["sample_inputs"][0].shape)
     print(f"per chunk {shape} on {card}: kernel {timing['ms']:.4f} ms, "
@@ -1144,6 +1477,15 @@ def main(argv) -> int:
           f"whole step {ftiming['step_ms']:.4f} ms, plain "
           f"{ftiming['step_plain_ms']:.4f} ms (turns "
           f"{[round(x, 4) for x in ftiming['step_turns']]})")
+    for name, tm in (("tilestats_u16", timing), ("roistats_f32", ftiming)):
+        print(f"{name} at the bench chunk on {card}: grid {tm['grid']} CTAs "
+              f"of {threads} threads, {tm['ctas_per_sm']} resident per SM x {sms} "
+              f"SMs; bound {tm['bound_ms']:.5f} ms by {tm['bound_by']} "
+              f"({tm['bytes']} B at 3.35 TB/s, {tm['ops']:.0f} f32 ops at "
+              f"67 TFLOP/s); kernel {tm['ms']:.4f} ms per call through the "
+              f"Python wrapper (CUDA events) = {100 * tm['bound_ms'] / tm['ms']:.1f} % "
+              f"of bound; {tm['device_ms']:.4f} ms on the device (CUDA graph "
+              f"replay) = {100 * tm['bound_ms'] / tm['device_ms']:.1f} % of bound")
     shutil.rmtree(data, ignore_errors=True)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     measured = {
@@ -1155,7 +1497,12 @@ def main(argv) -> int:
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": KERNELS[name][0],
         "replaces": KERNELS[name][1], "launches": launches,
-        "max_abs_err": err, "ms": tm["ms"], "plain_ms": tm["plain_ms"]}
+        "launches_per_run": launches, "max_abs_err": err, "ms": tm["ms"],
+        "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
+        "bound_by": tm["bound_by"], "library_ms": None,
+        "share_of_bound": tm["bound_ms"] / tm["ms"], "device_ms": tm["device_ms"],
+        "grid": tm["grid"],
+        "ctas_per_sm": tm["ctas_per_sm"]}
         for name, (launches, err, tm) in measured.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -6,9 +6,14 @@ reader finds each counterpart by path (``ops/tilestats_u16.py`` here ports
 each Pallas kernel of the JAX package becomes a kernel written by hand for
 Hopper (``kernels/``), built with ``nvcc`` at first use.
 
-Ported so far: the batched, tables-only intensity path
-(``pipelines.intensity.run_intensity_batched``) with the u16 tile-statistics
-kernel.  The package never imports ``jax`` nor the ``imageprocess_tpu``
-package; the jax-free host helpers it shares are loaded by file path
-(``_host``).  Every entry point takes an explicit ``device``.
+Ported so far: the batched tables-only intensity and FRET paths
+(``pipelines.intensity.run_intensity_batched``,
+``pipelines.fret.run_fret_batched``) with the two statistics kernels, and
+U-Net cell segmentation (``segment.cellseg``, ``segment.auto``).  The
+package never imports ``jax`` nor the ``imageprocess_tpu`` package, and
+runs none of its files: the host tier is its own (``native`` over
+``native/tiff_lzw.cpp``, ``core.naming``, ``core.i18n``, ``geom.polygon``,
+``report.xlsxlite``, ``morphology.contours``, ``models.synthcells``).  It
+reads only the bundled checkpoints from ``imageprocess_tpu/models/
+pretrained/``, as data.  Every entry point takes an explicit ``device``.
 """

@@ -1,1 +1,2 @@
-"""Host-side ROI input (dataset grammar comes from ``_host.naming``)."""
+"""Host-side dataset grammar (``naming``), messages (``i18n``) and ROI
+input (``roiio``)."""

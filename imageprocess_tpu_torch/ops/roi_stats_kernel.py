@@ -27,7 +27,7 @@ kernel is launched, adds to it.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -42,6 +42,7 @@ P_LO1000, P_HI1000 = 5000, 95000
 #: kernel launches since the last reset
 launches = {"roistats_f32": 0}
 _smem_limit: Dict[int, int] = {}
+_variants: Dict[Tuple[int, int], Tuple[bool, bool]] = {}
 
 
 def reset_launches() -> None:
@@ -95,39 +96,95 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_ip_bound", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.ip_roistats_f32.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
-                                        ci, ci, ci, vp]
+                                        ci, ci, ci, ci, vp]
         lib.ip_roistats_f32.restype = ci
-        lib.ip_roistats_smem_bytes.argtypes = [ci]
+        lib.ip_roistats_smem_bytes.argtypes = [ci, ci]
         lib.ip_roistats_smem_bytes.restype = ctypes.c_longlong
         lib.ip_roistats_smem_limit.argtypes = [ci]
         lib.ip_roistats_smem_limit.restype = ctypes.c_longlong
+        lib.ip_roistats_occupancy.argtypes = [ci, ci, ci]
+        lib.ip_roistats_occupancy.restype = ci
         lib.ip_cuda_error_string.argtypes = [ci]
         lib.ip_cuda_error_string.restype = ctypes.c_char_p
         lib._ip_bound = True
     return lib
 
 
-def kernel_uses_smem(T: int, device: torch.device) -> bool:
-    """True when a T x T tile's keys fit the card's opt-in shared memory,
-    so the kernel stages them there; otherwise it reads device memory."""
-    lib = _lib()
+def smem_fits(T: int, device: torch.device) -> Tuple[bool, bool]:
+    """(the keys fit, keys and mask fit) the card's opt-in shared memory
+    for T x T tiles."""
     idx = device.index if device.index is not None else torch.cuda.current_device()
+    lib = _lib()
     if idx not in _smem_limit:
         with torch.cuda.device(idx):
             _smem_limit[idx] = int(lib.ip_roistats_smem_limit(idx))
         if _smem_limit[idx] <= 0:
-            raise RuntimeError("could not read the shared-memory limit of "
-                               f"cuda:{idx}")
-    return int(lib.ip_roistats_smem_bytes(T)) <= _smem_limit[idx]
+            raise RuntimeError(f"could not read the shared-memory limit of cuda:{idx}")
+    return tuple(int(lib.ip_roistats_smem_bytes(T, m)) <= _smem_limit[idx]
+                 for m in (0, 1))
+
+
+def _defaults(T: int, device: torch.device) -> Tuple[bool, bool]:
+    """(stage the keys, stage the mask too) for T x T tiles, cached per
+    (device, T).  The keys are staged when they fit the card's opt-in
+    shared memory; the mask beside them when both fit and that leaves as
+    many resident CTAs per SM as the keys alone (at T = 144 it halves
+    them, and the keys alone ran 22 % faster on an H100: PERF.md)."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    got = _variants.get((idx, T))
+    if got is None:
+        keys_fit, both_fit = smem_fits(T, device)
+        if both_fit:
+            with torch.cuda.device(idx):
+                occ = [int(_lib().ip_roistats_occupancy(T, 1, m)) for m in (0, 1)]
+            if min(occ) < 0:
+                raise RuntimeError(f"could not read the occupancy of roistats_f32 "
+                                   f"on cuda:{idx}")
+            both_fit = occ[1] >= occ[0]
+        got = (keys_fit, both_fit)
+        _variants[(idx, T)] = got
+    return got
+
+
+def kernel_uses_smem(T: int, device: torch.device) -> bool:
+    """True when a T x T tile's keys fit the card's opt-in shared memory,
+    so the kernel stages them there; otherwise it reads device memory."""
+    return _defaults(T, device)[0]
+
+
+def kernel_variant(T: int, device: torch.device, use_smem: Optional[bool] = None,
+                   stage_mask: Optional[bool] = None) -> Tuple[bool, bool]:
+    """(use_smem, stage_mask) of a launch on T x T tiles: by default the
+    keys in shared memory when they fit, and the mask beside them as
+    ``_defaults`` decides.  An argument that is not None forces its part
+    (a mask is staged only with the keys)."""
+    keys_fit, with_mask = _defaults(T, device)
+    if use_smem is None:
+        use_smem = keys_fit
+    if stage_mask is None:
+        stage_mask = with_mask
+    return bool(use_smem), bool(use_smem and stage_mask)
+
+
+def occupancy(T: int, device: torch.device, use_smem: Optional[bool] = None,
+              stage_mask: Optional[bool] = None) -> int:
+    """Resident CTAs per SM of the variant a launch on T x T tiles takes
+    (the grid is one CTA per (ROI, channel))."""
+    use_smem, stage_mask = kernel_variant(T, device, use_smem, stage_mask)
+    with torch.cuda.device(device):
+        n = int(_lib().ip_roistats_occupancy(T, int(use_smem), int(stage_mask)))
+    if n < 0:
+        raise RuntimeError(f"could not read the occupancy of roistats_f32 on {device}")
+    return n
 
 
 def roi_stat_rows(frames, masks, offs, *, p_lo1000: int = P_LO1000,
-                  p_hi1000: int = P_HI1000,
-                  use_smem: Optional[bool] = None) -> torch.Tensor:
+                  p_hi1000: int = P_HI1000, use_smem: Optional[bool] = None,
+                  stage_mask: Optional[bool] = None) -> torch.Tensor:
     """(R, C, 9) float32 statistics from the CUDA kernel, launched on the
     current stream without synchronising.  All three tensors contiguous
-    on one CUDA device.  *use_smem* forces the kernel variant (None: shared
-    memory when the tile fits)."""
+    on one CUDA device.  *use_smem* and *stage_mask* force the kernel
+    variant (None: as ``kernel_variant`` picks it)."""
     dev = frames.device
     for name, tns in (("frames", frames), ("masks", masks), ("offs", offs)):
         if not (tns.is_cuda and tns.device == dev and tns.is_contiguous()):
@@ -141,19 +198,19 @@ def roi_stat_rows(frames, masks, offs, *, p_lo1000: int = P_LO1000,
     out = torch.empty((R, C, N_STATS), dtype=torch.float32, device=dev)
     if R * C == 0:
         return out
-    if use_smem is None:
-        use_smem = kernel_uses_smem(T, dev)
+    use_smem, stage_mask = kernel_variant(T, dev, use_smem, stage_mask)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.ip_roistats_f32(
             frames.data_ptr(), masks.data_ptr(), offs.data_ptr(),
             out.data_ptr(), R, F, C, H, W, T, int(p_lo1000), int(p_hi1000),
-            int(bool(use_smem)), stream)
+            int(use_smem), int(stage_mask), stream)
     if rc != 0:
         raise RuntimeError(
             f"roistats_f32 launch failed: {lib.ip_cuda_error_string(rc).decode()}"
-            f" (R={R}, F={F}, C={C}, H={H}, W={W}, T={T}, use_smem={use_smem})")
+            f" (R={R}, F={F}, C={C}, H={H}, W={W}, T={T}, use_smem={use_smem}, "
+            f"stage_mask={stage_mask})")
     launches["roistats_f32"] += 1
     return out
 

@@ -21,7 +21,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from .._host import polygon
+from ..geom import polygon
 from ..geom.rasterize import rasterize_polygons
 from . import roi_stats_kernel as rsk
 from .tilestats_u16 import tile_stats_u16

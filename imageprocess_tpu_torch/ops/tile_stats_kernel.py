@@ -35,7 +35,7 @@ P_LO1000, P_HI1000 = 5000, 95000
 
 #: kernel launches since the last reset
 launches = {"tilestats_u16": 0}
-_smem_optin: Dict[int, int] = {}
+_smem_limit: Dict[int, int] = {}
 
 
 def reset_launches() -> None:
@@ -102,28 +102,44 @@ def _lib() -> ctypes.CDLL:
         lib.ip_tilestats_u16.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci,
                                          ci, ci, ci, vp]
         lib.ip_tilestats_u16.restype = ci
-        lib.ip_tilestats_smem_bytes.argtypes = [ci, ci]
+        lib.ip_tilestats_smem_bytes.argtypes = [ci]
         lib.ip_tilestats_smem_bytes.restype = ctypes.c_longlong
-        lib.ip_tilestats_smem_optin.argtypes = [ci]
-        lib.ip_tilestats_smem_optin.restype = ctypes.c_longlong
+        lib.ip_tilestats_smem_limit.argtypes = [ci]
+        lib.ip_tilestats_smem_limit.restype = ctypes.c_longlong
+        lib.ip_tilestats_occupancy.argtypes = [ci, ci]
+        lib.ip_tilestats_occupancy.restype = ci
         lib.ip_cuda_error_string.argtypes = [ci]
         lib.ip_cuda_error_string.restype = ctypes.c_char_p
         lib._ip_bound = True
     return lib
 
 
-def kernel_uses_smem(C: int, t: int, device: torch.device) -> bool:
-    """True when a (C, t, t) tile fits the card's opt-in shared memory, so
-    the kernel stages it there; otherwise it reads device memory."""
+def kernel_uses_smem(t: int, device: torch.device) -> bool:
+    """True when one channel's t x t tile and its mask fit the card's
+    opt-in shared memory, so the kernel stages them there; otherwise it
+    reads device memory."""
     lib = _lib()
     idx = device.index if device.index is not None else torch.cuda.current_device()
-    if idx not in _smem_optin:
+    if idx not in _smem_limit:
         with torch.cuda.device(idx):
-            _smem_optin[idx] = int(lib.ip_tilestats_smem_optin(idx))
-        if _smem_optin[idx] <= 0:
+            _smem_limit[idx] = int(lib.ip_tilestats_smem_limit(idx))
+        if _smem_limit[idx] <= 0:
             raise RuntimeError("could not read the shared-memory limit of "
                                f"cuda:{idx}")
-    return int(lib.ip_tilestats_smem_bytes(C, t)) <= _smem_optin[idx]
+    return int(lib.ip_tilestats_smem_bytes(t)) <= _smem_limit[idx]
+
+
+def occupancy(t: int, device: torch.device,
+              use_smem: Optional[bool] = None) -> int:
+    """Resident CTAs per SM of the variant a launch on t x t tiles takes
+    (the grid is one CTA per (frame, ROI, channel))."""
+    if use_smem is None:
+        use_smem = kernel_uses_smem(t, device)
+    with torch.cuda.device(device):
+        n = int(_lib().ip_tilestats_occupancy(t, int(bool(use_smem))))
+    if n < 0:
+        raise RuntimeError(f"could not read the occupancy of tilestats_u16 on {device}")
+    return n
 
 
 def launch_packed(tiles, masks, bgs, *, clip_neg: bool = True,
@@ -149,7 +165,7 @@ def launch_packed(tiles, masks, bgs, *, clip_neg: bool = True,
     if B * N == 0:
         return out
     if use_smem is None:
-        use_smem = kernel_uses_smem(C, t, dev)
+        use_smem = kernel_uses_smem(t, dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

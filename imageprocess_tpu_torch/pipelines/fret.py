@@ -41,7 +41,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from .._host import i18n, naming, native
+from .. import native
+from ..core import i18n, naming
 from ..core import roiio
 from ..device import resolve_device
 from ..ops.percentile import p1000_of

@@ -18,7 +18,8 @@ import os
 import re
 from typing import Dict, List, Tuple
 
-from .._host import naming, xlsxlite
+from ..core import naming
+from . import xlsxlite
 
 BASE_COLS = ("stage", "time", "roi", "area_px",
              "bg_mode", "bg_scope", "clip_neg", "bg_stride")

@@ -18,7 +18,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from .._host import contours, i18n, naming, native
+from .. import native
+from ..core import i18n, naming
+from ..morphology import contours
 from ..core import roiio
 from ..device import resolve_device
 from ..morphology.binary import (binary_closing_skimage, binary_dilation,

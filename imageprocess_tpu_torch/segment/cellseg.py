@@ -24,7 +24,8 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .._host import contours, native
+from .. import native
+from ..morphology import contours
 from ..device import no_tf32, resolve_device
 from ..morphology.ccl import label, remove_small_objects
 from ..ops.view import stretch_view

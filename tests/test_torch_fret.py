@@ -27,8 +27,8 @@ import torch
 from imageprocess_tpu.core import roiio, tiffio
 from imageprocess_tpu.geom.polygon import pad_polygons
 from imageprocess_tpu.pipelines import fret as jfret
-from imageprocess_tpu_torch._host import native as port_native
-from imageprocess_tpu_torch._host import xlsxlite
+from imageprocess_tpu_torch import native as port_native
+from imageprocess_tpu_torch.report import xlsxlite
 from imageprocess_tpu_torch.ops import roi_stats_kernel as rsk
 from imageprocess_tpu_torch.ops.stats import STAT_FIELDS
 from imageprocess_tpu_torch.parallel import runner as port_runner

@@ -17,8 +17,8 @@ import torch
 
 from imageprocess_tpu.core import roiio, tiffio
 from imageprocess_tpu.pipelines import intensity as jint
-from imageprocess_tpu_torch._host import native as port_native
-from imageprocess_tpu_torch._host import xlsxlite
+from imageprocess_tpu_torch import native as port_native
+from imageprocess_tpu_torch.report import xlsxlite
 from imageprocess_tpu_torch.ops import roistats as port_roistats
 from imageprocess_tpu_torch.ops import tile_stats_kernel as tsk
 from imageprocess_tpu_torch.parallel import runner as port_runner

@@ -1,11 +1,12 @@
 """The port imports torch and never jax: no port source names ``jax`` or
-the ``imageprocess_tpu`` package, and importing its main paths pulls in
-neither jax, flax, PIL, pandas nor matplotlib (the card's machine is not
-promised them)."""
+the ``imageprocess_tpu`` package, none executes a file of that package,
+and importing its main paths pulls in neither jax, flax, PIL, pandas nor
+matplotlib (the card's machine is not promised them)."""
 
 import ast
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -71,19 +72,97 @@ def test_main_path_import_pulls_in_no_jax_pil_pandas():
     assert json.loads(res.stdout.strip().splitlines()[-1]) == []
 
 
-def test_host_leaf_modules_load_by_path():
-    """The shared host modules are executed from the reference's files
-    under private names, and dataclasses in them work."""
-    from imageprocess_tpu_torch import _host
+# string constants that name the JAX package as a path: "imageprocess_tpu"
+# as a path component, or a path starting with "imageprocess_tpu/"
+_REF_PATH = re.compile(r"^imageprocess_tpu(?:$|[/\\])")
+_LOADERS = ("spec_from_file_location", "SourceFileLoader", "run_path",
+            "exec_module")
 
-    for name in ("native", "naming", "i18n", "polygon", "xlsxlite",
-                 "contours", "synthcells"):
-        mod = getattr(_host, name)
-        assert sys.modules[mod.__name__] is mod
-        assert mod.__file__.startswith(os.path.join(REPO, "imageprocess_tpu", ""))
-        assert not mod.__name__.startswith("imageprocess_tpu.")
-    key = _host.naming.parse_tokens("S03_t02_2.TIF", timelapse=True)
-    assert (key.stage, key.time, key.channel) == (3, 2, 2)
+
+def _docstrings(tree):
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(first.value, ast.Constant):
+                out.add(id(first.value))
+    return out
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_file_of_the_reference_package_is_executed(path):
+    """No port source and not chip_smoke.py loads a module from a file
+    path, and none builds a path into imageprocess_tpu/ other than the
+    bundled checkpoints (data read by models/checkpoint.py)."""
+    with open(path, encoding="utf-8") as f:
+        text = f.read()
+    for word in _LOADERS:
+        assert word not in text, (path, word)
+    tree = ast.parse(text, path)
+    docs = _docstrings(tree)
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Call):
+            continue
+        args = [a.value if isinstance(a, ast.Constant) else None for a in node.args]
+        for i, a in enumerate(args):
+            if isinstance(a, str) and id(node.args[i]) not in docs and _REF_PATH.match(a):
+                rest = [x for x in args[i:] if isinstance(x, str)]
+                joined = "/".join(rest).replace("\\", "/")
+                assert joined.startswith("imageprocess_tpu/models/pretrained"), (
+                    path, node.lineno, rest)
+
+
+def test_main_paths_load_no_reference_file_and_build_outside_it(tmp_path):
+    """A process that imports every main path and decodes a TIFF for the
+    first time (the decoder built from scratch) holds no module whose file
+    lies under imageprocess_tpu/, and writes nothing of its own there: the
+    decoder and its temp file (both named libiptiff_<hash>...) land in the
+    port's build folder.  (The JAX binding, which other tests may build
+    meanwhile, writes its own ``libiptiff.so`` into imageprocess_tpu/native/;
+    only the port's names are looked for.)"""
+    ref = os.path.join(REPO, "imageprocess_tpu")
+    build_dir = str(tmp_path / "build")
+
+    def port_files():
+        return sorted(os.path.join(d, n) for d, _, names in os.walk(ref)
+                      for n in names if n.startswith("libiptiff_"))
+
+    before = port_files()
+    code = (
+        "import json, os, sys\n"
+        "import numpy as np\n"
+        "import chip_smoke\n"
+        "import imageprocess_tpu_torch.pipelines.intensity\n"
+        "import imageprocess_tpu_torch.pipelines.fret\n"
+        "import imageprocess_tpu_torch.parallel.runner\n"
+        "import imageprocess_tpu_torch.segment.auto\n"
+        "import imageprocess_tpu_torch.segment.cellseg\n"
+        "import imageprocess_tpu_torch.models.synthcells\n"
+        "import imageprocess_tpu_torch.report.excel\n"
+        "from imageprocess_tpu_torch import native\n"
+        f"native.BUILD_DIR = {build_dir!r}\n"
+        "lib = native.library_path()\n"
+        "assert not os.path.exists(lib)\n"
+        f"p = {str(tmp_path / 'f.tif')!r}\n"
+        "img = (np.arange(60 * 70) % 4001).astype(np.uint16).reshape(60, 70)\n"
+        "chip_smoke.write_tiff16_deflate(p, img, 16)\n"
+        "assert (native.decode_tiff(p) == img).all()\n"
+        "assert os.path.exists(lib)\n"
+        f"ref = {os.path.join(ref, '')!r}\n"
+        "bad = [m for m, mod in list(sys.modules.items())\n"
+        "       if (getattr(mod, '__file__', None) or '').startswith(ref)]\n"
+        "print(json.dumps([bad, lib]))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    bad, lib = json.loads(res.stdout.strip().splitlines()[-1])
+    assert bad == []
+    assert os.path.dirname(lib) == build_dir
+    assert os.path.basename(lib).startswith("libiptiff_")
+    assert port_files() == before
 
 
 def test_chip_smoke_alone_prints_no_result(tmp_path):

@@ -47,7 +47,7 @@ DOMAIN_BARS = [  # tests/test_unet_general.py: (domain, recall, mean IoU) at IoU
 
 def _synth_u16(domain, seed, H, W):
     # the generator file loaded by path: the JAX models package imports flax
-    from imageprocess_tpu_torch._host import synthcells
+    from imageprocess_tpu_torch.models import synthcells
 
     img, lab = synthcells.synth_frame(np.random.default_rng(seed), H, W, domain)
     return np.clip(img, 0, 65535).astype(np.uint16), lab

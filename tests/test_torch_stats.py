@@ -366,3 +366,70 @@ def test_cuda_kernel_matches_plain(cuda_device, case, use_smem):
     torch.testing.assert_close(got[..., exact], want[..., exact], rtol=0, atol=0,
                                equal_nan=True)
     torch.testing.assert_close(got, want, rtol=M_RTOL, atol=0, equal_nan=True)
+
+
+VARIANTS = {"staged": {}, "keys-staged": {"stage_mask": False},
+            "device-memory": {"use_smem": False}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_cuda_kernel_radix_edge_cases(cuda_device, variant):
+    """On a card: the radix-select edge cases chip_smoke.py checks -- every
+    value equal, every key in one top-byte bin, keys from -inf to +inf with
+    subnormals and signed zeros, n = 0, 1 and 2, ranks on either side of a
+    top-, second- and low-byte edge, C = 1 and 3, T = 36, 37, 64 and 128,
+    staged and row-wise frame forms -- give the plain version's rows, in
+    every kernel variant (keys and mask in shared memory, the keys alone,
+    device memory)."""
+    import chip_smoke
+
+    for name, frames, masks, offs, moments in chip_smoke.radix_cases_f32():
+        fr, mk, of = (torch.from_numpy(a).to(cuda_device) for a in (frames, masks, offs))
+        got = rsk.roi_stat_rows(fr, mk, of, **VARIANTS[variant])
+        want = rsk.roi_stat_rows_plain(fr, mk, of)
+        chip_smoke.compare_packed(got.movedim(-1, 1), want.movedim(-1, 1), name,
+                                  chip_smoke.ROW_EXACT, moments)
+
+
+def _stack_case(R, T, seed):
+    rng = np.random.default_rng(seed)
+    frames = torch.from_numpy(rng.normal(100, 40, (R, 3, T, T)).astype(np.float32))
+    yy, xx = np.mgrid[0:T, 0:T]
+    masks = np.stack([(xx - T / 2) ** 2 + (yy - T / 2) ** 2 <= (T / 2 - 1 - r) ** 2
+                      for r in range(R)])
+    return frames, torch.from_numpy(masks), rsk.stack_offsets(R, "cpu")
+
+
+@pytest.mark.cuda
+def test_cuda_large_tile_keeps_keys_in_shared_memory(cuda_device):
+    """On a card: a T = 224 tile's keys fit the opt-in shared memory but not
+    its mask as well, so the default launch stages the keys alone; its rows
+    equal the plain version's.  At T = 144 the mask would fit too, but
+    would leave one CTA per SM instead of two, so the keys go alone there
+    as well; at T = 128 both fit at two CTAs per SM."""
+    assert rsk.smem_fits(224, cuda_device) == (True, False)
+    assert rsk.kernel_variant(224, cuda_device) == (True, False)
+    assert rsk.smem_fits(144, cuda_device) == (True, True)
+    assert rsk.kernel_variant(144, cuda_device) == (True, False)
+    assert rsk.kernel_variant(128, cuda_device) == (True, True)
+    fr, mk, of = (x.to(cuda_device) for x in _stack_case(4, 224, 3))
+    got = rsk.roi_stat_rows(fr, mk, of)
+    want = rsk.roi_stat_rows_plain(fr, mk, of)
+    torch.testing.assert_close(got[..., [1, 3, 4, 5, 6, 8]], want[..., [1, 3, 4, 5, 6, 8]],
+                               rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(got, want, rtol=M_RTOL, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_cuda_occupancy_query_leaves_large_launches_working(cuda_device):
+    """On a card: an occupancy query at a small tile between two launches at
+    a large one does not lower the shared memory the large launch needs."""
+    fr, mk, of = (x.to(cuda_device) for x in _stack_case(3, 200, 4))
+    want = rsk.roi_stat_rows_plain(fr, mk, of)
+    first = rsk.roi_stat_rows(fr, mk, of)
+    assert rsk.occupancy(32, cuda_device) >= 1
+    again = rsk.roi_stat_rows(fr, mk, of)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(first, again, rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(again, want, rtol=M_RTOL, atol=0, equal_nan=True)

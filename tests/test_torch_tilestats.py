@@ -255,3 +255,40 @@ def test_cuda_kernel_matches_plain(cuda_device, clip):
     torch.testing.assert_close(got[:, exact], want[:, exact], rtol=0, atol=0,
                                equal_nan=True)
     torch.testing.assert_close(got, want, rtol=RTOL, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_smem", [None, False], ids=["staged", "device-memory"])
+def test_cuda_kernel_radix_edge_cases(cuda_device, use_smem):
+    """On a card: the radix-select edge cases chip_smoke.py checks -- every
+    value equal, every masked value in one high-byte bin, values over
+    0..65535, n = 0, 1 and 2, ranks on either side of a bin edge, C = 1, 2
+    and 3, t = 37, 50, 64 and 128 -- give the plain version's rows, in both
+    kernel variants."""
+    import chip_smoke
+
+    for name, tiles, masks, bgs in chip_smoke.radix_cases_u16():
+        tl, mk, bg = (torch.from_numpy(a).to(cuda_device) for a in (tiles, masks, bgs))
+        got = tsk.launch_packed(tl, mk, bg, use_smem=use_smem)
+        want = tsk.packed_from_masks_plain(tl, mk, bg)
+        chip_smoke.compare_packed(got, want, name)
+
+
+@pytest.mark.cuda
+def test_cuda_occupancy_query_leaves_large_launches_working(cuda_device):
+    """On a card: an occupancy query at a small tile between two launches at
+    a large one does not lower the shared memory the large launch needs."""
+    rng = np.random.default_rng(5)
+    t = 256
+    tiles = torch.from_numpy(rng.integers(0, 65536, (1, 2, 2, t, t)).astype(np.uint16))
+    masks = torch.from_numpy(rng.random((1, 2, t, t)) > 0.3)
+    bgs = torch.tensor([[10.0, 20.0]])
+    tl, mk, bg = (x.to(cuda_device) for x in (tiles, masks, bgs))
+    assert tsk.kernel_uses_smem(t, cuda_device)
+    want = tsk.packed_from_masks_plain(tl, mk, bg)
+    first = tsk.launch_packed(tl, mk, bg)
+    assert tsk.occupancy(32, cuda_device) >= 1
+    again = tsk.launch_packed(tl, mk, bg)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(first, again, rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(again, want, rtol=RTOL, atol=0, equal_nan=True)
