@@ -5,14 +5,16 @@ Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py
 
-It drives the port's three main paths on the card, at the shapes of the
-repo's benchmark (16 stages x channels (2, 3) of 1536 x 2048 u16 frames
-with 18 circular ROIs of radius 60 each, 288 rows per run): the batched
+It drives the port's main paths on the card, at the shapes of the repo's
+benchmark (16 stages x channels (2, 3) of 1536 x 2048 u16 frames with 18
+circular ROIs of radius 60 each, 288 rows per run): the batched
 tables-only intensity runner
 (``imageprocess_tpu_torch.pipelines.intensity.run_intensity_batched``),
 the batched FRET tables runner
 (``imageprocess_tpu_torch.pipelines.fret.run_fret_batched``, channels 2/3
-as donor/acceptor) and U-Net cell segmentation of one 1536 x 2048 frame
+as donor/acceptor), the serial runners ``run_intensity`` (the CLI's
+default intensity path) and ``run_fret``, and U-Net cell segmentation of
+one 1536 x 2048 frame
 (``imageprocess_tpu_torch.segment.cellseg.segment_frame_unet``, the bundled
 golden checkpoint).  Phases, each of which exits non-zero on failure:
 
@@ -38,15 +40,32 @@ golden checkpoint).  Phases, each of which exits non-zero on failure:
    row-wise staging).  Masks, npx, area, vmin, vmax and the quantiles must
    be equal; mean, std and vsum within 1e-5 relative;
 4. write the dataset (under ``imageprocess_tpu_torch/_build/``);
-5. run each runner on the card: the first run checks every chunk's kernel
-   output against the plain version on the same device tensors and counts
-   kernel launches (the counts are set to 0 just before the run and read
-   just after); later runs are timed.  Rows are checked against a numpy
-   reference for a few ROIs of two stages;
-6. a small experiment with a key of another frame shape (the runners'
-   per-key path) gives the same rows on the card as on the CPU, for each
-   runner;
-7. segmentation: a deterministic synthcells "fluor" frame (u16), segmented
+5. run each batched runner on the card: the first run checks every
+   chunk's kernel output against the plain version on the same device
+   tensors and counts kernel launches (the counts are set to 0 just before
+   the run and read just after); later runs are timed.  Rows are checked
+   against a numpy reference for a few ROIs of two stages;
+6. a small experiment with a key of another frame shape (the batched
+   runners' per-key path) gives the same rows on the card as on the CPU,
+   for each runner;
+7. the serial runners ``run_intensity`` and ``run_fret`` on the same
+   dataset: a warm run, a checked run (every ``roistats_f32`` launch -- one
+   per key, its ROI tiles at unaligned origins in the uploaded frame -- held
+   to its plain version, the count set to 0 just before and read just
+   after: 16 each), two timed runs (warm and steady Mpix/s); their 288
+   rows equal the batched runners' (backgrounds, eps, order statistics,
+   areas and npx exact, moments within 1e-5 relative);
+8. the variant experiment: phase 6's keys plus a PNG union mask, a key
+   without ROI (the whole-frame ROI 0), a 600-px ROI (T = 608, the kernel
+   from device memory), a full-frame ROI, 8-bit, float32-with-NaN and RGB
+   frames; every bg_mode x bg_scope of ``run_intensity`` and of
+   ``run_fret`` (both ratio modes): the card's rows equal the CPU's, every
+   launch equals its plain version;
+9. ``roistats_f32`` at the serial shapes, each launch checked against its
+   plain version: one key (F = 1, C = 2, R = 24, T = 128, unaligned
+   origins) and the whole-frame ROI 0 of a bench frame (zero-padded to
+   2048 x 2048), per call and by graph replay;
+10. segmentation: a deterministic synthcells "fluor" frame (u16), segmented
    to polygons once warm and three times timed (e2e Mpix/s = H*W / wall
    seconds, frame on the host to polygons), once more with per-phase CUDA
    events and the CCL round counts.  Checks: the card's label map agrees
@@ -54,7 +73,7 @@ golden checkpoint).  Phases, each of which exits non-zero on failure:
    the card's post-process fed the CPU's network output gives the CPU's
    label map exactly, and the generalist checkpoint finds the generator's
    cells (recall >= 0.90, mean IoU >= 0.70 at IoU >= 0.3);
-8. kernel and plain times per chunk: each kernel's time per call through
+11. kernel and plain times per chunk: each kernel's time per call through
    its Python wrapper against the plain version's (CUDA events around 50
    calls, in turns plain / kernel / kernel / plain), the kernel's device
    time by CUDA graph replay (the wrapper's host time left out), the grid
@@ -67,8 +86,9 @@ The last two lines of standard output are one JSON object per line: the
 kernel table (``ms`` per call, ``device_ms`` by graph replay, ``bound_ms``,
 ``bound_by``, ``library_ms`` -- null: no single PyTorch call computes
 masked moments with six exact order statistics -- and
-``launches_per_run``), then ``{"ok": true, "device": {...}}``.  Without a
-card, or outside a checkout, it prints no result and exits non-zero.
+``launches_per_run``; ``roistats_f32`` also ``launches_serial`` and its
+``serial_shapes`` times), then ``{"ok": true, "device": {...}}``.  Without
+a card, or outside a checkout, it prints no result and exits non-zero.
 
 ``python3 chip_smoke.py --kernels-only`` stops after phase 3.
 ``python3 chip_smoke.py --kernel-times [--root DIR]`` only builds and
@@ -565,12 +585,17 @@ def check_radix(device) -> dict:
 
 # ------------------------------------------------------------------ dataset
 
-def write_tiff16_deflate(path: str, img, rows_per_strip: int = 64) -> None:
-    """Baseline little-endian u16 TIFF with Adobe-Deflate strips (zlib),
+def write_tiff_deflate(path: str, img, rows_per_strip: int = 64) -> None:
+    """Baseline little-endian TIFF with Adobe-Deflate strips (zlib) of an
+    (H, W) uint8, uint16 or float32 frame or an (H, W, 3) uint8 RGB one,
     numpy and stdlib only."""
-    h, w = img.shape
-    raw = img.astype("<u2").tobytes()
-    stride = w * 2
+    import numpy as np
+
+    img = np.ascontiguousarray(img)
+    h, w = img.shape[:2]
+    spp = img.shape[2] if img.ndim == 3 else 1
+    raw = img.astype(img.dtype.newbyteorder("<")).tobytes()
+    stride = w * spp * img.dtype.itemsize
     strips = [zlib.compress(raw[r * stride:(r + rows_per_strip) * stride], 6)
               for r in range(0, h, rows_per_strip)]
     n = len(strips)
@@ -578,26 +603,54 @@ def write_tiff16_deflate(path: str, img, rows_per_strip: int = 64) -> None:
     for s in strips:
         offs.append(pos)
         pos += len(s)
-    arrays = pos
-    ifd = arrays + 8 * n
-    entries = [(256, 3, 1, w), (257, 3, 1, h), (258, 3, 1, 16),
-               (259, 3, 1, 8), (262, 3, 1, 1), (273, 4, n, arrays),
-               (277, 3, 1, 1), (278, 3, 1, rows_per_strip),
-               (279, 4, n, arrays + 4 * n)]
+    arrays = pos                          # strip offsets, then byte counts
+    bits_at = arrays + 8 * n              # BitsPerSample of an RGB frame
+    ifd = bits_at + (2 * spp if spp > 1 else 0)
+    bits = 8 * img.dtype.itemsize
+    entries = [(256, 3, 1, w), (257, 3, 1, h),
+               (258, 3, spp, bits if spp == 1 else bits_at), (259, 3, 1, 8),
+               (262, 3, 1, 2 if spp == 3 else 1),
+               (273, 4, n, arrays if n > 1 else offs[0]), (277, 3, 1, spp),
+               (278, 3, 1, rows_per_strip),
+               (279, 4, n, arrays + 4 * n if n > 1 else len(strips[0])),
+               (284, 3, 1, 1), (339, 3, 1, 3 if img.dtype.kind == "f" else 1)]
     buf = bytearray(b"II" + struct.pack("<HI", 42, ifd))
     for s in strips:
         buf += s
     buf += struct.pack(f"<{n}I", *offs)
     buf += struct.pack(f"<{n}I", *[len(s) for s in strips])
+    if spp > 1:
+        buf += struct.pack(f"<{spp}H", *([bits] * spp))
     buf += struct.pack("<H", len(entries))
     for tag, typ, cnt, val in entries:
-        fmt = "<HHIHH" if typ == 3 else "<HHII"
-        buf += struct.pack(fmt, tag, typ, cnt, val, *((0,) if typ == 3 else ()))
+        inline_short = typ == 3 and cnt == 1
+        fmt = "<HHIHH" if inline_short else "<HHII"
+        buf += struct.pack(fmt, tag, typ, cnt, val, *((0,) if inline_short else ()))
     buf += struct.pack("<I", 0)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         f.write(buf)
     os.replace(tmp, path)
+
+
+def write_tiff16_deflate(path: str, img, rows_per_strip: int = 64) -> None:
+    """:func:`write_tiff_deflate` of a frame as uint16."""
+    write_tiff_deflate(path, img.astype("<u2"), rows_per_strip)
+
+
+def write_png_gray(path: str, img) -> None:
+    """8-bit grayscale PNG of an (H, W) uint8 array, stdlib only."""
+    h, w = img.shape
+    raw = b"".join(b"\x00" + img[r].astype("u1").tobytes() for r in range(h))
+
+    def chunk(typ: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + typ + data
+                + struct.pack(">I", zlib.crc32(typ + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
 
 
 def bench_polys():
@@ -785,7 +838,7 @@ def run_main_path(folder: str, device: str, reps: int = 3) -> dict:
         "max_abs_err": max(e["max_abs_err"] for e in errs),
         "max_rel_err_moments": max(e["max_rel_err_moments"] for e in errs),
         "numpy_ref_max_rel": ref_rel,
-        "sample_inputs": shapes[0],
+        "sample_inputs": shapes[0], "row_list": rows,
     }
 
 
@@ -924,7 +977,7 @@ def run_fret_main_path(folder: str, device: str, reps: int = 3) -> dict:
         "max_abs_err": max(e["max_abs_err"] for e in errs),
         "max_rel_err_moments": max(e["max_rel_err_moments"] for e in errs),
         "numpy_ref_max_rel": ref_rel,
-        "sample_inputs": inputs[0],
+        "sample_inputs": inputs[0], "row_list": rows,
     }
 
 
@@ -991,17 +1044,24 @@ def write_serial_experiment(folder: str) -> None:
             json.dump({"rois": [poly, [[70, 40], [115, 45], [110, 85]]][:s % 2 + 1]}, f)
 
 
-def _rows_equal(card, cpu, what: str, moments) -> None:
-    if len(card) != 8 or len(cpu) != 8:
-        raise SmokeError(f"{what}: {len(card)} rows on the card, {len(cpu)} "
-                         "on the CPU, want 8")
+def _rows_equal(card, cpu, what: str, moments, n: int = 8) -> None:
+    """Two runs' rows: *n* each, equal but for the *moments* columns
+    (within REL_TOL relative); NaN where NaN."""
+    if len(card) != n or len(cpu) != n:
+        raise SmokeError(f"{what}: {len(card)} rows, then {len(cpu)}, want {n}")
     for a, b in zip(card, cpu):
+        if list(a) != list(b):
+            raise SmokeError(f"{what}: columns {list(a)} vs {list(b)}")
         for k, v in b.items():
-            if isinstance(v, float) and k.endswith(moments):
+            if isinstance(v, float) and math.isnan(v):
+                if not (isinstance(a[k], float) and math.isnan(a[k])):
+                    raise SmokeError(f"{what}: {k} {a[k]!r} vs NaN")
+            elif isinstance(v, float) and k.endswith(moments):
                 if abs(a[k] - v) > REL_TOL * max(abs(v), 1e-9):
                     raise SmokeError(f"{what}: {k} {a[k]} vs {v}")
             elif a[k] != v:
-                raise SmokeError(f"{what}: {k} {a[k]!r} vs {v!r}")
+                raise SmokeError(f"{what}: {a.get('stage')} roi {a.get('roi')} "
+                                 f"{k} {a[k]!r} vs {v!r}")
 
 
 def check_fret_serial_path(folder: str) -> int:
@@ -1016,6 +1076,294 @@ def check_fret_serial_path(folder: str) -> int:
     _rows_equal(rows["cuda"], rows["cpu"], "FRET serial-path check",
                 ("_mean", "_std"))
     return len(rows["cuda"])
+
+
+# ------------------------------------------------------------------ serial paths
+
+class CheckedRoiRows:
+    """While active, every ``roistats_f32`` launch of ``ops.roistats``
+    (the tiles of ``roi_stats_tiled``, the whole frames of
+    ``roi_stats_full``) is held to the plain version on the same device
+    tensors (outside the launch count: the plain version launches no
+    kernel); the inputs of the first launch of each mask shape are kept
+    for the timings."""
+
+    def __init__(self, what: str):
+        from imageprocess_tpu_torch.ops import roistats as trs
+
+        self.trs, self.what = trs, what
+        self.real = trs.roi_stat_rows
+        self.errs, self.first = [], {}
+
+    def __enter__(self):
+        from imageprocess_tpu_torch.ops import roi_stats_kernel as rsk
+
+        def checked(frames, masks, offs):
+            out = self.real(frames, masks, offs)
+            if frames.is_cuda:
+                want = rsk.roi_stat_rows_plain(frames, masks, offs)
+                self.errs.append(compare_packed(
+                    out.movedim(-1, 1), want.movedim(-1, 1),
+                    f"{self.what} launch {len(self.errs)} {tuple(masks.shape)}",
+                    ROW_EXACT, ROW_MOMENTS))
+                self.first.setdefault(tuple(masks.shape), (frames, masks, offs))
+            return out
+
+        self.trs.roi_stat_rows = checked
+        return self
+
+    def __exit__(self, *exc):
+        self.trs.roi_stat_rows = self.real
+
+    def worst(self) -> dict:
+        return {k: max((e[k] for e in self.errs), default=0.0)
+                for k in ("max_abs_err", "max_rel_err_moments")}
+
+
+def run_serial_main_path(folder: str, device: str, runner: str, batched_rows,
+                         reps: int = 2) -> dict:
+    """A serial runner (``run_intensity`` or ``run_fret``) on the smoke
+    dataset: a warm run, a checked run (every ``roistats_f32`` launch held
+    to its plain version; the launch count set to 0 just before it and read
+    just after), *reps* timed runs; its rows must equal the batched
+    runner's (order statistics, backgrounds, eps, areas and npx exact,
+    moments within REL_TOL)."""
+    import torch
+
+    from imageprocess_tpu_torch.ops import roi_stats_kernel as rsk
+    from imageprocess_tpu_torch.pipelines import fret, intensity
+
+    workers = max(8, (os.cpu_count() or 1) * 2)
+    logs = []
+    if runner == "intensity":
+        cfg = intensity.IntensityConfig(channels=CHANNELS,
+                                        channel_colors={2: "Green", 3: "Red"})
+        out_root, moments = os.path.join(folder, "RES_serial"), ("_mean", "_std", "_vsum")
+
+        def one_run():
+            return intensity.run_intensity(folder, cfg, out_root=out_root,
+                                           log=logs.append, prefetch_workers=workers,
+                                           device=device)
+        report = ("fluor_intensity_perROI.csv", "fluor_intensity_perROI.xlsx")
+    else:
+        cfg = fret.FretConfig(donor_ch=CHANNELS[0], acceptor_ch=CHANNELS[1])
+        out_root, moments = os.path.join(folder, "RES_serial_fret"), ("_mean", "_std")
+
+        def one_run():
+            return fret.run_fret(folder, cfg, out_root=out_root, log=logs.append,
+                                 prefetch_workers=workers, device=device)
+        report = ("fret_ratio_perROI.csv", "fret_ratio_perROI.xlsx")
+    mpix = N_STAGES * len(CHANNELS) * H * W / 1e6
+    t0 = time.perf_counter()
+    one_run()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    rsk.reset_launches()
+    with CheckedRoiRows(f"serial {runner}") as chk:
+        rows = one_run()
+    torch.cuda.synchronize()
+    launches = rsk.launches["roistats_f32"]
+    if launches != N_STAGES or len(chk.errs) != N_STAGES:
+        raise SmokeError(f"serial {runner}: {launches} roistats_f32 launches, "
+                         f"{len(chk.errs)} checked, want {N_STAGES}")
+    errors = [line for line in logs if "ERROR" in str(line) or "오류" in str(line)]
+    if errors:
+        raise SmokeError(f"serial {runner} logged errors: {errors[:3]}")
+    for name in report:
+        if not os.path.exists(os.path.join(out_root, "xls", name)):
+            raise SmokeError(f"serial {runner}: {name} was not written")
+    _rows_equal(rows, batched_rows, f"serial {runner} vs batched", moments,
+                N_STAGES * N_ROI)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        again = one_run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if len(again) != len(rows):
+            raise SmokeError(f"serial {runner}: a timed run lost rows")
+    return {"rows": len(rows), "launches": launches, "warm_s": warm,
+            "steady_s": min(times), "times_s": times, "warm_mpix_s": mpix / warm,
+            "steady_mpix_s": mpix / min(times), "key_inputs": chk.first,
+            "profile": profile_run(one_run), **chk.worst()}
+
+
+def profile_run(fn, top: int = 8) -> dict:
+    """One call of *fn* under ``torch.profiler`` (CPU and CUDA activities):
+    its wall seconds, the device time (the union of the kernel and copy
+    intervals, so overlaps count once), the device's idle share of the
+    wall, and the *top* kernel and copy names by summed device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        a, b = e.time_range.start, e.time_range.end
+        spans.append((a, b))
+        by_name[e.name] = by_name.get(e.name, 0.0) + (b - a) / 1e3
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    busy_ms = busy / 1e3
+    names = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return {"wall_s": wall, "device_ms": busy_ms, "events": len(spans),
+            "idle_share": 1.0 - busy_ms / (wall * 1e3),
+            "top": [(n[:60], round(ms, 4)) for n, ms in names]}
+
+
+BIG_ROI = 600      # px across: choose_tile gives 608, the device-memory variant
+
+
+def write_variant_experiment(folder: str) -> dict:
+    """``write_serial_experiment`` plus one key per case the serial
+    runners take: a PNG union mask (S06), no ROI (S07), a 600-px ROI beside
+    a small one on a 640 x 800 frame (S08), a full-frame ROI beside a
+    small one (S09), 8-bit (S10), float32 with NaN (S11) and RGB (S12)
+    frames.  Returns the rows each runner must give (skip_no_roi=False)."""
+    import numpy as np
+
+    write_serial_experiment(folder)
+    rng = np.random.default_rng(9)
+    small = [[15.5, 15.5], [60.5, 18.5], [55.5, 70.5], [12.5, 66.5]]
+    h, w = 160, 192
+    whole = [[-3, -3], [w + 3, -3], [w + 3, h + 3], [-3, h + 3]]
+    keys = {6: ("u16", "png"), 7: ("u16", None),
+            8: ("big", [_circle(400.0, 320.0, BIG_ROI / 2 - 1, 64).tolist(), small]),
+            9: ("u16", [whole, small]), 10: ("u8", [small]),
+            11: ("f32", [small, [[70, 40], [115, 45], [110, 85]]]), 12: ("rgb", [small])}
+    for s, (kind, rois) in keys.items():
+        shape = (640, 800) if kind == "big" else (h, w)
+        for ch in CHANNELS:
+            if kind in ("u16", "big"):
+                img = rng.integers(10, 3000, shape).astype("u2")
+            elif kind == "u8":
+                img = rng.integers(0, 256, shape).astype("u1")
+            elif kind == "f32":
+                img = rng.uniform(10.0, 3000.0, shape).astype("f4")
+                img[rng.random(shape) < 0.03] = np.nan
+            else:
+                img = rng.integers(0, 256, shape + (3,)).astype("u1")
+            write_tiff_deflate(os.path.join(folder, f"S{s:02d}_{ch}.TIF"), img)
+        if rois == "png":
+            m = np.zeros(shape, "u1")
+            m[30:90, 40:120] = 255
+            write_png_gray(os.path.join(folder, "roi", f"S{s:02d}.png"), m)
+        elif rois is not None:
+            with open(os.path.join(folder, "roi", f"S{s:02d}.json"), "w") as f:
+                json.dump({"rois": rois}, f)
+    return {"intensity": 18, "fret": 16}
+
+
+def check_variant_paths(folder: str) -> dict:
+    """Every bg_mode x bg_scope of ``run_intensity`` (skip_no_roi=False)
+    and of ``run_fret`` (both ratio modes over the six) on the variant
+    experiment: the card's rows equal the CPU's, and every launch equals
+    its plain version."""
+    from imageprocess_tpu_torch.ops import roi_stats_kernel as rsk
+    from imageprocess_tpu_torch.pipelines import fret, intensity
+
+    want = write_variant_experiment(folder)
+    quiet = lambda *_: None  # noqa: E731
+    launches, shapes = 0, set()
+    with CheckedRoiRows("variant") as chk:
+        for i, (mode, scope) in enumerate((m, s) for m in ("percentile", "hist-mode", "none")
+                                          for s in ("full", "roi_union")):
+            icfg = intensity.IntensityConfig(channels=CHANNELS, bg_mode=mode,
+                                             bg_scope=scope, skip_no_roi=False,
+                                             do_xls=False)
+            fcfg = fret.FretConfig(donor_ch=CHANNELS[0], acceptor_ch=CHANNELS[1],
+                                   bg_mode=mode, bg_scope=scope, do_xls=False,
+                                   ratio_mode=("FRET/Donor", "Donor/FRET")[i % 2])
+            rsk.reset_launches()
+            card = intensity.run_intensity(folder, icfg, log=quiet, device="cuda")
+            fcard = fret.run_fret(folder, fcfg, log=quiet, device="cuda")
+            launches += rsk.launches["roistats_f32"]
+            cpu = intensity.run_intensity(folder, icfg, log=quiet, device="cpu")
+            fcpu = fret.run_fret(folder, fcfg, log=quiet, device="cpu")
+            _rows_equal(card, cpu, f"variant intensity {mode} {scope}",
+                        ("_mean", "_std", "_vsum"), want["intensity"])
+            _rows_equal(fcard, fcpu, f"variant FRET {mode} {scope}",
+                        ("_mean", "_std"), want["fret"])
+        shapes = sorted(chk.first)
+    return {"configs": 6, "launches": launches, "tile_shapes": shapes,
+            "checked": len(chk.errs), **chk.worst()}
+
+
+def whole_frame_inputs(folder: str):
+    """The launch of the whole-frame ROI 0 at the bench frame size: stage
+    S01's corrected frames through ``ops.roistats.roi_stats_full`` (the
+    frame zero-padded to one 2048 x 2048 tile), held to the plain version
+    on the way; returns its (frames, masks, offs)."""
+    import numpy as np
+    import torch
+
+    from imageprocess_tpu_torch import native
+    from imageprocess_tpu_torch.ops import roistats as trs
+    from imageprocess_tpu_torch.ops.background import bg_value
+
+    imgs = np.stack([native.decode_tiff(os.path.join(folder, f"S01_{ch}.TIF"))
+                     for ch in CHANNELS])
+    x = torch.from_numpy(imgs.astype(np.int32)).cuda()
+    bgs = torch.stack([bg_value(im, 1000, None, "percentile", 4) for im in x])
+    bc = torch.clamp(x.float() - bgs[:, None, None], min=0.0)
+    with CheckedRoiRows("whole frame") as chk:
+        trs.roi_stats_full(bc, torch.ones((1, H, W), dtype=torch.bool, device=bc.device))
+    return next(iter(chk.first.values()))
+
+
+def time_roi_rows(inputs, extent=None, reps: int = 50, per_graph: int = 20,
+                  graph_reps: int = 10) -> dict:
+    """``roistats_f32`` on one launch's inputs: per call (CUDA events, in
+    turns plain / kernel / kernel / plain) and by graph replay, checked
+    against the plain version; the bound counts what the statistics need
+    read and written: for each valid ROI (a mask with a pixel set; the
+    bucket's padding lanes are left out) the C values and the mask of its
+    tile's part inside the unpadded frame of *extent* = (H, W) (the
+    frame's own size by default), its origin and its C x 9 output."""
+    import torch
+
+    from imageprocess_tpu_torch.ops import roi_stats_kernel as rsk
+
+    frames, masks, offs = inputs
+    kern = lambda: rsk.roi_stat_rows(frames, masks, offs)  # noqa: E731
+    plain = lambda: rsk.roi_stat_rows_plain(frames, masks, offs)  # noqa: E731
+    out = kern()
+    err = compare_packed(out.movedim(-1, 1), plain().movedim(-1, 1),
+                         f"timing {tuple(masks.shape)}", ROW_EXACT, ROW_MOMENTS)
+    warm = max(1, reps // 10)
+    p1, k1, k2, p2 = (cuda_ms(plain, reps, warm), cuda_ms(kern, reps, warm),
+                      cuda_ms(kern, reps, warm), cuda_ms(plain, reps, warm))
+    R, T, _ = masks.shape
+    C = frames.shape[1]
+    H, W = extent or frames.shape[-2:]
+    valid = masks.reshape(R, -1).any(dim=1)
+    rows = torch.clamp(H - offs[valid, 1], 0, T).to(torch.int64)
+    cols = torch.clamp(W - offs[valid, 2], 0, T).to(torch.int64)
+    px = int((rows * cols).sum().item())
+    nv = int(valid.sum().item())
+    nbytes = px * (C * 4 + 1) + nv * (offs.shape[1] * 4 + C * 9 * 4)
+    ops = 7.0 * out[..., 8].sum().item()
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    use_smem, stage_mask = rsk.kernel_variant(T, frames.device)
+    return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "turns": [p1, k1, k2, p2],
+            "device_ms": graph_ms(kern, per_graph, graph_reps), "bytes": nbytes,
+            "valid": nv, "lanes": R,
+            "ops": ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "grid": R * C, "shape": [list(frames.shape), list(masks.shape)],
+            "use_smem": use_smem, "stage_mask": stage_mask,
+            "npx": int(out[..., 8].sum().item()), **err}
 
 
 def cuda_ms(fn, reps: int = 50, warmup: int = 5) -> float:
@@ -1430,6 +1778,47 @@ def main(argv) -> int:
     n = check_fret_serial_path(os.path.join(data, "serial_fret"))
     print(f"FRET serial-path check ok: {n} rows (one pair of another frame "
           "shape) equal on the card and on the CPU")
+    serial = {}
+    for runner, batched, entry in (("intensity", res, "run_intensity"),
+                                   ("fret", fres, "run_fret")):
+        sr = run_serial_main_path(data, "cuda", runner, batched["row_list"])
+        serial[entry] = sr
+        print(f"serial {runner} path ok: {entry}(device='cuda') {sr['rows']} rows "
+              f"equal to the batched runner's, roistats_f32 launches "
+              f"{sr['launches']} (one per key), each equal to its plain version "
+              f"(max_abs_err={sr['max_abs_err']} "
+              f"max_rel_err_moments={sr['max_rel_err_moments']})")
+        print(f"serial {runner} e2e on {card}: warm {sr['warm_mpix_s']:.2f} Mpix/s "
+              f"({sr['warm_s']:.4f} s), steady {sr['steady_mpix_s']:.2f} Mpix/s "
+              f"(best of {[round(x, 4) for x in sr['times_s']]} s)")
+        pr = sr["profile"]
+        print(f"serial {runner} under torch.profiler on {card}: one run "
+              f"{pr['wall_s']:.4f} s, device busy {pr['device_ms']:.3f} ms over "
+              f"{pr['events']} kernels and copies (idle {100 * pr['idle_share']:.1f} "
+              f"% of the run); largest: {pr['top']}")
+    vres = check_variant_paths(os.path.join(data, "variants"))
+    print(f"variant paths ok: {vres['configs']} bg_mode x bg_scope configs of "
+          f"run_intensity (PNG mask, whole-frame ROI 0, a {BIG_ROI}-px ROI, a "
+          f"full-frame ROI, 8-bit, float32 with NaN, RGB) and run_fret (both ratio "
+          f"modes): card rows == CPU rows; {vres['launches']} roistats_f32 launches "
+          f"over mask shapes {vres['tile_shapes']}, each equal to its plain version "
+          f"(max_abs_err={vres['max_abs_err']} "
+          f"max_rel_err_moments={vres['max_rel_err_moments']})")
+    key_in = next(iter(serial["run_intensity"]["key_inputs"].values()))
+    serial_times = {"serial key": time_roi_rows(key_in),
+                    "whole frame": time_roi_rows(whole_frame_inputs(data), (H, W),
+                                                 reps=10, per_graph=4, graph_reps=3)}
+    for name, tm in serial_times.items():
+        print(f"roistats_f32 at the {name} on {card}: frames {tm['shape'][0]} masks "
+              f"{tm['shape'][1]} (use_smem={tm['use_smem']}, "
+              f"stage_mask={tm['stage_mask']}), grid {tm['grid']} CTAs; kernel "
+              f"{tm['ms']:.4f} ms per call, {tm['device_ms']:.4f} ms on the device "
+              f"(graph replay), plain {tm['plain_ms']:.4f} ms (turns "
+              f"{[round(x, 4) for x in tm['turns']]}); bound {tm['bound_ms']:.5f} ms "
+              f"by {tm['bound_by']} ({tm['bytes']} B: values and mask inside the "
+              f"{H}x{W} frame, origin and output of the {tm['valid']} valid of "
+              f"{tm['lanes']} lanes, {tm['ops']:.0f} f32 ops) = "
+              f"{100 * tm['bound_ms'] / tm['device_ms']:.1f} % of bound on the device")
     seg = run_seg_path("cuda")
     print(f"seg path ok: {H}x{W} u16 synthcells fluor frame, golden U-Net "
           f"(tile 256, overlap 32, n_iter 120), {seg['polygons']} polygons; "
@@ -1492,8 +1881,18 @@ def main(argv) -> int:
         "tilestats_u16": (res["launches"],
                           max(res["max_abs_err"], worst["max_abs_err"]), timing),
         "roistats_f32": (fres["launches"],
-                         max(fres["max_abs_err"], worst_f["max_abs_err"]), ftiming),
+                         max(fres["max_abs_err"], worst_f["max_abs_err"],
+                             vres["max_abs_err"],
+                             *(sr["max_abs_err"] for sr in serial.values()),
+                             *(tm["max_abs_err"] for tm in serial_times.values())),
+                         ftiming),
     }
+    extra = {"roistats_f32": {
+        "launches_serial": {**{k: sr["launches"] for k, sr in serial.items()},
+                            "variant_runs": vres["launches"]},
+        "serial_shapes": {name: {k: tm[k] for k in (
+            "shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "bytes",
+            "valid", "grid", "use_smem")} for name, tm in serial_times.items()}}}
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": KERNELS[name][0],
         "replaces": KERNELS[name][1], "launches": launches,
@@ -1502,7 +1901,7 @@ def main(argv) -> int:
         "bound_by": tm["bound_by"], "library_ms": None,
         "share_of_bound": tm["bound_ms"] / tm["ms"], "device_ms": tm["device_ms"],
         "grid": tm["grid"],
-        "ctas_per_sm": tm["ctas_per_sm"]}
+        "ctas_per_sm": tm["ctas_per_sm"], **extra.get(name, {})}
         for name, (launches, err, tm) in measured.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

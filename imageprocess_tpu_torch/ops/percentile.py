@@ -69,3 +69,14 @@ def masked_quantile(x: torch.Tensor, mask: torch.Tensor, p1000: int) -> torch.Te
     xs = torch.sort(flat).values
     n = mask.sum(dtype=torch.int32)
     return quantile_from_sorted(xs, n, p1000)
+
+
+def strided_submask(mask: torch.Tensor, stride: int) -> torch.Tensor:
+    """Every *stride*-th True pixel of *mask* in row-major order (the i-th
+    True pixel survives iff i % stride == 0): the reference's
+    ``vals[::stride]`` after mask scoping, without a ragged gather."""
+    if stride <= 1:
+        return mask
+    flat = mask.reshape(-1)
+    order = torch.cumsum(flat.to(torch.int32), 0, dtype=torch.int32) - 1
+    return (flat & (order % stride == 0)).reshape(mask.shape)

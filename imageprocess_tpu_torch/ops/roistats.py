@@ -3,7 +3,8 @@
 Port of ``imageprocess_tpu/ops/roistats.py``: the host helpers that size,
 place and gather each ROI's square tile (numpy, unchanged);
 ``roi_stats_tiled``, the statistics of bbox tiles sliced out of float
-frames on the device; and ``tile_stats_from_gathered``, the per-frame
+frames on the device; ``roi_stats_full``, the same statistics over whole
+frames; and ``tile_stats_from_gathered``, the per-frame
 statistics of host-gathered raw tiles with a host-computed background.
 Each tile covers its polygon's image-clipped bbox, and the rasterizer is
 shift-exact on the half-integer vertex lattice, so tile statistics equal
@@ -111,6 +112,27 @@ def roi_stats_tiled(
     offs = torch.nn.functional.pad(offsets.to(torch.int32), (1, 0))
     rows = roi_stat_rows(imgs.to(torch.float32).contiguous()[None],
                          masks.contiguous(), offs.contiguous())
+    return rsk.rows_to_stats(rows), masks.sum(dim=(1, 2), dtype=torch.int32)
+
+
+def roi_stats_full(
+    imgs: torch.Tensor,         # (C, H, W) float32 (already bg-corrected)
+    masks: torch.Tensor,        # (N, H, W) bool
+) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """Per-(channel, ROI) stats over whole frames (the JAX package's
+    ``roi_stats`` of full-frame masks) through the same statistics as the
+    tiles: the frame and the masks are zero-padded to one S x S tile,
+    S = max(H, W), the padding masked out.  Returns (stats dict of (C, N),
+    area_px (N,) int32)."""
+    C, H, W = imgs.shape
+    N = masks.shape[0]
+    S = max(H, W)
+    frame = imgs.new_zeros((1, C, S, S))
+    frame[0, :, :H, :W] = imgs
+    padded = masks.new_zeros((N, S, S))
+    padded[:, :H, :W] = masks
+    offs = torch.zeros((N, 3), dtype=torch.int32, device=imgs.device)
+    rows = roi_stat_rows(frame, padded, offs)
     return rsk.rows_to_stats(rows), masks.sum(dim=(1, 2), dtype=torch.int32)
 
 

@@ -51,6 +51,24 @@ def _order_stats_bisect(xi: torch.Tensor, mask: torch.Tensor,
     return hi
 
 
+def bisect_masked_quantile(xi: torch.Tensor, mask: torch.Tensor, n,
+                           p1000: int) -> torch.Tensor:
+    """np.percentile-linear quantile of masked integral values by the
+    16-step value-range bisection (no sort, no 65536-bin scatter).
+
+    xi: (..., P) int32 in [0, 65535]; mask: (..., P) bool; n: (...) int32
+    valid counts.  Returns (...) float32; undefined where n == 0 (callers
+    guard)."""
+    n = torch.as_tensor(n, dtype=torch.int32, device=xi.device)
+    k, g = exact_quantile_pos(n, p1000)
+    nm1 = torch.clamp(n - 1, min=0)
+    ks = torch.stack([torch.minimum(torch.clamp(k, min=0), nm1),
+                      torch.minimum(torch.clamp(torch.minimum(k + 1, nm1), min=0),
+                                    nm1)], dim=-1)
+    os2 = _order_stats_bisect(xi, mask, ks).to(torch.float32)
+    return os2[..., 0] + g * (os2[..., 1] - os2[..., 0])
+
+
 def tile_stats_u16_batched(
     tiles: torch.Tensor,    # (B, N, C, t, t) uint16 RAW tile pixels
     masks: torch.Tensor,    # (B, N, t, t) bool (validity applied)

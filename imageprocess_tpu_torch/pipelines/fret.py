@@ -1,9 +1,27 @@
-"""Two-channel ratiometric FRET: the batched, tables-only runner.
+"""Two-channel ratiometric FRET: the serial runner and the batched,
+tables-only runner.
 
-Port of ``imageprocess_tpu/pipelines/fret.py`` (``FretConfig``,
-``build_fret_pairs``, ``load_pair``, ``_fret_row``, ``_host_fret_scalars``,
-``batched_fret_tile_stats``, ``run_fret_batched``).  Per (stage, time)
-pair:
+Port of ``imageprocess_tpu/pipelines/fret.py``.
+
+The serial runner (``run_fret``) takes one (stage, time) pair at a time:
+the host decodes both channels (the native decoder, ``core.tiffio`` per
+file for frames it does not take) and loads the ROI polygons;
+``process_pair`` uploads the raw frames and runs the device program:
+
+- ``fret_step_tiled`` when every polygon fits a tile: each channel's
+  background from its raw frame (stride 1, ``ops.background.bg_value``),
+  clip(x - bg), eps = max(eps_abs, the eps percentile of the corrected
+  denominator), the ratio (numer + eps) / (denom + eps), and the
+  statistics of [ratio, donor, acceptor] in each ROI's tile
+  (``ops.roistats.roi_stats_tiled``, the ``roistats_f32`` kernel on CUDA
+  tensors);
+- ``fret_step`` when an ROI needs the full frame: the same over full-frame
+  masks (``ops.roistats.roi_stats_full``, the same kernel).
+
+Only the statistics, areas and the three scalars come back; a pair with no
+ROI file logs ``fret_roi_missing`` and gives no rows.
+
+The batched runner (``run_fret_batched``), per chunk of pairs:
 
 1. host, prefetch threads: one native call decodes both channels, builds
    their full-frame u16 histograms and cuts each ROI's tile
@@ -21,14 +39,12 @@ pair:
    (``_fret_row``) and only then recycles the chunk's host buffers;
    ``report.excel.save_fret_excel`` writes the tables.
 
-Pairs the batch cannot take (another frame shape, a tile-size hint miss)
-run the same tile step as a batch of one, in key order.  A pair with no
-ROI file logs ``fret_roi_missing`` and gives no rows.  Pairs that need the
-full-frame program — non-u16 frames, an ROI that needs the full frame —
-raise ``NotImplementedError`` (the serial FRET path), which the streaming
-protocol logs per key; so do, at entry, the configs the JAX runner sends
-to ``run_fret`` (image outputs, ``bg_scope != "full"``, a ``bg_mode``
-other than ``percentile``/``none``).
+Pairs the batch cannot take (another frame shape, non-u16 frames, no ROI
+file, an ROI that needs the full frame) run ``process_pair`` in key order;
+a config the batch does not cover (``bg_scope != "full"``, a ``bg_mode``
+other than ``percentile``/``none``) runs ``run_fret`` throughout.  The
+TIF/PNG image outputs are not ported: both runners raise
+``NotImplementedError`` for them before they read a file.
 """
 
 from __future__ import annotations
@@ -43,16 +59,24 @@ import torch
 
 from .. import native
 from ..core import i18n, naming
-from ..core import roiio
+from ..core import roiio, tiffio
 from ..device import resolve_device
-from ..ops.percentile import p1000_of
+from ..geom.polygon import pad_polygons
+from ..geom.rasterize import rasterize_polygons
+from ..ops.background import as_float32, bg_correct
+from ..ops.percentile import masked_quantile, p1000_of
+from ..ops.ratio import ratio_with_eps
+from ..ops.roistats import (
+    choose_tile, pad_local_polys, roi_stats_full, roi_stats_tiled, tile_offsets,
+)
 from ..ops.stats import STAT_FIELDS
 from ..parallel import runner
-from .intensity import PinnedPool, _bucket
+from .intensity import (
+    PinnedPool, _bucket, _pack_key, refuse_image_outputs, to_device,
+)
 
 t = i18n.t
 ChannelGrammar = naming.ChannelGrammar
-SERIAL_FRET = "the serial FRET path (run_fret, ROADMAP Queue 1 item 8)"
 
 
 @dataclass
@@ -137,24 +161,26 @@ def _roi_base(roi_dir: str, dpath: str, cfg: FretConfig) -> str:
 
 def load_pair(key, dpath, apath, roi_dir, cfg: FretConfig,
               with_hists: bool = False, pool=None):
-    """Host side: decode both channels with one native call + load the ROI
-    polygons.  Returns (D, A, polys or None), and with *with_hists* the
-    decoder's full-frame u16 histograms (or None for non-u16 frames) as a
-    4th element.  Raises when the native decoder cannot take the pair."""
+    """Host side: decode both channels (one native call; ``core.tiffio``
+    per file when the decoder does not take the pair, e.g. RGB or frames
+    of two shapes) + load the ROI polygons.  Returns (D, A, polys or None),
+    and with *with_hists* the decoder's full-frame u16 histograms (None
+    for non-u16 frames and the per-file reads) as a 4th element."""
     res = native.decode_tiff_batch_hist([dpath, apath], 1 if with_hists else 0,
                                         pool=pool)
-    if res is None or res[0].ndim != 3:
-        raise RuntimeError(
-            f"{key}: the native TIFF decoder is unavailable or does not "
-            f"support {dpath} / {apath} (same-shaped single-sample frames "
-            "only)")
-    both, hists = res
+    if res is not None and res[0].ndim == 3:
+        both, hists = res
+        D, A = both[0], both[1]
+    else:
+        D = tiffio.read_2d(dpath, dtype=None)
+        A = tiffio.read_2d(apath, dtype=None)
+        hists = None
     base = _roi_base(roi_dir, dpath, cfg)
     polys = (roiio.load_roi_polygons(base + ".json")
              if os.path.exists(base + ".json") else None)
     if with_hists:
-        return both[0], both[1], polys or None, hists
-    return both[0], both[1], polys or None
+        return D, A, polys or None, hists
+    return D, A, polys or None
 
 
 def _fret_row(s, t_code, i, get, area_i, eps_f, cfg: FretConfig,
@@ -195,6 +221,77 @@ def _channel_ps(cfg: FretConfig):
     return cfg.percentile, cfg.percentile
 
 
+def _correct(img: torch.Tensor, p1000: int, scope, bg_mode: str,
+             clip_neg: bool):
+    """(float32 clip(x - bg), bg) with bg from the raw frame at stride 1
+    (u16 frames keep the exact integer path); "none": the frame as it is,
+    unclipped."""
+    if bg_mode == "none":
+        return as_float32(img), torch.zeros((), dtype=torch.float32,
+                                            device=img.device)
+    return bg_correct(img, p1000, scope, bg_mode, stride=1, clip_neg=clip_neg)
+
+
+def _ratio(Dbc, Abc, scope, eps_p1000: int, eps_abs: float, flip: bool):
+    """(ratio frame, eps): eps = max(eps_abs, the eps percentile of the
+    corrected denominator over the scope, eps_abs where that is NaN)."""
+    numer, denom = (Dbc, Abc) if flip else (Abc, Dbc)
+    scope_eps = torch.ones_like(denom, dtype=torch.bool) if scope is None else scope
+    eps_q = masked_quantile(denom, scope_eps, eps_p1000)
+    ea = torch.tensor(eps_abs, dtype=torch.float32, device=denom.device)
+    eps = torch.maximum(ea, torch.where(torch.isnan(eps_q), ea, eps_q))
+    return ratio_with_eps(numer, denom, eps), eps
+
+
+def fret_step(
+    D: torch.Tensor,            # (H, W) raw donor (u8 / u16 / float)
+    A: torch.Tensor,            # (H, W) raw acceptor
+    polys: torch.Tensor,        # (N, V, 2) float32, padded
+    roi_valid: torch.Tensor,    # (N,) bool
+    d_p1000: int, a_p1000: int, eps_p1000: int, eps_abs: float,
+    *,
+    bg_mode: str = "percentile",
+    bg_scope: str = "full",
+    clip_neg: bool = True,
+    flip: bool = False,         # False: FRET/Donor, True: Donor/FRET
+):
+    """One pair on the device over full-frame masks.  Returns (stats dict
+    of (3, N) for [ratio, donor, yfret], area_px (N,), (Db, Ab, eps)
+    scalars, R_full, Dbc, Abc, union)."""
+    H, W = D.shape
+    masks = rasterize_polygons(polys, (H, W)) & roi_valid[:, None, None]
+    union = masks.any(dim=0)
+    scope = union if bg_scope == "roi_union" else None
+    Dbc, Db = _correct(D, d_p1000, scope, bg_mode, clip_neg)
+    Abc, Ab = _correct(A, a_p1000, scope, bg_mode, clip_neg)
+    R_full, eps = _ratio(Dbc, Abc, scope, eps_p1000, eps_abs, flip)
+    stats, area = roi_stats_full(torch.stack([R_full, Dbc, Abc]), masks)
+    return stats, area, (Db, Ab, eps), R_full, Dbc, Abc, union
+
+
+def fret_step_tiled(
+    D, A, full_polys, local_polys, offsets, roi_valid,
+    d_p1000: int, a_p1000: int, eps_p1000: int, eps_abs: float,
+    *,
+    tile: int,
+    bg_mode: str = "percentile", bg_scope: str = "full", clip_neg: bool = True,
+    flip: bool = False,
+):
+    """:func:`fret_step` with the per-ROI statistics on bbox tiles: the
+    backgrounds, eps and ratio stay full-frame (elementwise + one
+    percentile).  The full-frame union is rasterized only for the
+    ``roi_union`` scope (None otherwise: the tables never read it)."""
+    H, W = D.shape
+    union = (rasterize_polygons(full_polys, (H, W)).any(dim=0)
+             if bg_scope == "roi_union" else None)
+    Dbc, Db = _correct(D, d_p1000, union, bg_mode, clip_neg)
+    Abc, Ab = _correct(A, a_p1000, union, bg_mode, clip_neg)
+    R_full, eps = _ratio(Dbc, Abc, union, eps_p1000, eps_abs, flip)
+    stats, area = roi_stats_tiled(torch.stack([R_full, Dbc, Abc]), local_polys,
+                                  offsets, roi_valid, tile)
+    return stats, area, (Db, Ab, eps), R_full, Dbc, Abc, union
+
+
 def _host_fret_scalars(D: np.ndarray, A: np.ndarray, cfg: FretConfig,
                        hists=None):
     """(bg_donor, bg_acceptor, eps) computed on the host for u16 frames.
@@ -231,6 +328,107 @@ def _host_fret_scalars(D: np.ndarray, A: np.ndarray, cfg: FretConfig,
     return float(bgd), float(bga), float(max(cfg.eps_abs, eps_q))
 
 
+def process_pair(key, dpath, apath, roi_dir, cfg: FretConfig, out_dirs=None,
+                 log=print, loaded=None, device="cuda") -> List[dict]:
+    """One (stage, time) pair synchronously -> its per-ROI rows.  Tables
+    only (*out_dirs*, the folders of the image outputs, is not read): one
+    copy brings back the statistics, areas and the three scalars; the
+    ratio and corrected frames stay on the device.  A pair without ROIs
+    logs ``fret_roi_missing`` and gives no rows."""
+    dev = resolve_device(device)
+    s, t_code = key
+    stid = f"{s}_{t_code}" if (cfg.timelapse and t_code is not None) else s
+    D, A, polys = loaded if loaded is not None else load_pair(
+        key, dpath, apath, roi_dir, cfg)
+    if not polys:
+        log(t("fret_roi_missing").format(tag=stid))
+        return []
+    H, W = D.shape
+    n = len(polys)
+    nb, vb = _bucket(n), _bucket(max(len(p) for p in polys), 32)
+    pv = np.zeros((nb, vb, 2), np.float32)
+    pv[:n] = pad_polygons([np.asarray(p, np.float32) for p in polys], vb)
+    valid = np.zeros(nb, bool)
+    valid[:n] = True
+
+    def up(arr):
+        return to_device(arr, dev, None, [])
+
+    flip = cfg.ratio_mode != "FRET/Donor"
+    d_p, a_p = _channel_ps(cfg)
+    common = dict(bg_mode=cfg.bg_mode, bg_scope=cfg.bg_scope,
+                  clip_neg=cfg.clip_neg, flip=flip)
+    scalars = (p1000_of(d_p), p1000_of(a_p), p1000_of(cfg.eps_percentile),
+               cfg.eps_abs)
+    tile = choose_tile(polys, H, W)
+    if tile is not None:
+        offs = tile_offsets(polys, H, W, tile)
+        lpv, offs_pad, lvalid = pad_local_polys(polys, offs, nb, vb)
+        stats, area, (_, _, eps), *_ = fret_step_tiled(
+            up(D), up(A), up(pv), up(lpv), up(offs_pad), up(lvalid), *scalars,
+            tile=tile, **common)
+    else:
+        stats, area, (_, _, eps), *_ = fret_step(
+            up(D), up(A), up(pv), up(valid), *scalars, **common)
+    vals = _pack_key(stats, area, eps[None]).cpu().numpy()
+    packed = vals[:len(STAT_FIELDS) * 3 * nb].reshape(len(STAT_FIELDS), 3, nb)
+    area_px = vals[len(STAT_FIELDS) * 3 * nb:][:nb]
+    eps_f = float(vals[-1])
+    return [_fret_row(s, t_code, i,
+                      lambda f, c, i=i: packed[STAT_FIELDS.index(f), c, i],
+                      area_px[i], eps_f, cfg, d_p, a_p)
+            for i in range(n)]
+
+
+def run_fret(
+    folder: str,
+    cfg: FretConfig,
+    out_root: Optional[str] = None,
+    log=print,
+    prefetch_workers: int = 8,
+    cancel=None,
+    device="cuda",
+) -> List[dict]:
+    """The FRET workload over an experiment *folder*, one pair at a time:
+    per-ROI rows of every (stage, time) pair, the tables under
+    ``RES/xls``.  TIFF decode runs in a thread pool *prefetch_workers*
+    wide; *cancel* (a zero-argument callable) is checked between pairs.
+    *device* is ``"cuda"`` (default; raises without a card) or ``"cpu"``."""
+    from ..report.excel import save_fret_excel
+
+    dev = resolve_device(device)
+    refuse_image_outputs(cfg.do_tif or cfg.do_png)
+    out_root = out_root or os.path.join(folder, "RES")
+    roi_dir = os.path.join(folder, "roi")
+    pairs = build_fret_pairs(folder, cfg)
+    if not pairs:
+        log(t("fret_no_pairs").format(donor=cfg.donor_ch,
+                                      acceptor=cfg.acceptor_ch))
+        return []
+    loader = runner.PrefetchLoader(
+        lambda kv: (kv, load_pair(kv[0], kv[1], kv[2], roi_dir, cfg)),
+        pairs, workers=max(1, prefetch_workers))
+    rows_all: List[dict] = []
+    for item in loader:
+        if cancel is not None and cancel():
+            log(t("cancelled"))
+            break
+        if isinstance(item, runner.LoadError):
+            log(t("err_worker").format(key=item.item[0], error=item.error))
+            continue
+        (key, dpath, apath), loaded = item
+        tag = key[0] if key[1] is None else f"{key[0]}_{key[1]}"
+        log(t("msg_processing").format(tag=tag))
+        rows_all.extend(process_pair(key, dpath, apath, roi_dir, cfg, None,
+                                     log=log, loaded=loaded, device=dev))
+    if cfg.do_xls and rows_all:
+        save_fret_excel(rows_all, os.path.join(out_root, "xls"), cfg.timelapse)
+        log(t("fret_saved"))
+    elif cfg.do_xls:
+        log(t("fret_no_roi"))
+    return rows_all
+
+
 def batched_fret_tile_stats(tiles, local_polys, roi_valid, bgs, eps, *,
                             clip_neg: bool = True, flip: bool = False):
     """Per-ROI stats over [ratio, donor_bc, acceptor_bc] of host-gathered
@@ -259,20 +457,18 @@ def run_fret_batched(
     device step and one packed result fetch per chunk, two chunks in
     flight.  *device* is ``"cuda"`` (default; raises without a card) or
     ``"cpu"`` (the plain PyTorch version, for tests).  Returns the rows in
-    key order."""
+    key order.  A config the batch does not cover runs :func:`run_fret`."""
     from ..ops.roistats import (
         choose_tile, gather_tiles, pad_local_polys, tile_offsets,
     )
     from ..report.excel import save_fret_excel
 
     dev = resolve_device(device)
-    if cfg.do_tif or cfg.do_png:
-        raise NotImplementedError(f"TIF/PNG image outputs need {SERIAL_FRET}")
-    if cfg.bg_scope != "full":
-        raise NotImplementedError(
-            f"bg_scope={cfg.bg_scope!r} needs {SERIAL_FRET}")
-    if cfg.bg_mode not in ("percentile", "none"):
-        raise NotImplementedError(f"bg_mode={cfg.bg_mode!r} needs {SERIAL_FRET}")
+    refuse_image_outputs(cfg.do_tif or cfg.do_png)
+    if cfg.bg_scope != "full" or cfg.bg_mode not in ("percentile", "none"):
+        return run_fret(folder, cfg, out_root=out_root, log=log,
+                        prefetch_workers=prefetch_workers, cancel=cancel,
+                        device=dev)
 
     out_root = out_root or os.path.join(folder, "RES")
     roi_dir = os.path.join(folder, "roi")
@@ -356,7 +552,9 @@ def run_fret_batched(
         key, dpath, apath = kv
         D, A, polys, hists = load_pair(key, dpath, apath, roi_dir, cfg,
                                        with_hists=True, pool=frame_pool)
-        if not polys or D.dtype != np.uint16:
+        if not polys or hists is None:
+            # no ROIs, or not one native decode of two u16 frames (whose
+            # (2, H, W) buffer the batch gathers from): process_pair
             return kv, (D, A, polys), None, None
         scalars = _host_fret_scalars(D, A, cfg, hists=hists)
         fit = _fit_hint(polys, *D.shape)
@@ -392,30 +590,16 @@ def run_fret_batched(
             _to_device(eps_b), clip_neg=cfg.clip_neg, flip=flip)
 
     def run_serial(entry):
-        """A pair the batch program can't take: the same tile step as a
-        batch of one, with its own tile size, synchronously."""
+        """A pair the batch program can't take: :func:`process_pair`,
+        synchronously."""
         nonlocal n_done
-        kv, (D, A, polys), scalars = entry[:3]  # a batch entry also has pre
-        stid = kv[0][0] if kv[0][1] is None else f"{kv[0][0]}_{kv[0][1]}"
-        if D.dtype != np.uint16:
-            raise NotImplementedError(f"{stid}: {D.dtype} frames need {SERIAL_FRET}")
-        H, W = D.shape
-        tile = choose_tile(polys, H, W)
-        if tile is None:
-            raise NotImplementedError(
-                f"{stid}: an ROI needs the full frame: {SERIAL_FRET}")
-        offs = tile_offsets(polys, H, W, tile)
-        nb = _bucket(len(polys))
-        lp, _, valid = pad_local_polys(
-            polys, offs, nb, _bucket(max(len(p) for p in polys), 32))
-        tiles = torch.from_numpy(gather_tiles(D.base, offs, nb, tile)[None])
-        bgd, bga, eps_f = scalars
-        packed = _step(tiles.to(dev), lp[None], valid[None],
-                       np.array([[bgd, bga]], np.float32),
-                       np.array([eps_f], np.float32))
-        _emit_rows(kv, len(polys), packed[0].cpu().numpy(), eps_f)
+        (key, dpath, apath), loaded = entry[:2]  # a batch entry has more
+        rows_all.extend(process_pair(key, dpath, apath, roi_dir, cfg, None,
+                                     log=log, loaded=loaded, device=dev))
         n_done += 1
-        frame_pool.put(D.base)
+        base = loaded[0].base
+        if base is not None and base.shape == (2,) + loaded[0].shape:
+            frame_pool.put(base)  # the native (2, H, W) decode buffer
 
     def dispatch(chunk):
         """Build the padded chunk and launch its device step WITHOUT
@@ -506,19 +690,15 @@ def run_fret_batched(
 
     def classify(item):
         nonlocal sig
-        kv, (D, A, polys), scalars, pre = item
-        if not polys:
-            stid = kv[0][0] if kv[0][1] is None else f"{kv[0][0]}_{kv[0][1]}"
-            log(t("fret_roi_missing").format(tag=stid))
-            frame_pool.put(D.base)
-            return "skip", None
-        if scalars is None:
-            return "serial", (kv, (D, A, polys), scalars)
+        kv, loaded, scalars, pre = item
+        D, A, polys = loaded
+        if scalars is None or not polys or D.shape != A.shape:
+            return "serial", (kv, loaded)
         if sig is None:
             sig = D.shape
         if D.shape != sig:
-            return "serial", (kv, (D, A, polys), scalars)
-        return "batch", (kv, (D, A, polys), scalars, pre)
+            return "serial", (kv, loaded)
+        return "batch", (kv, loaded, scalars, pre)
 
     def _err_key(it):
         # the raw (key, dpath, apath) loader item on a load failure, or an

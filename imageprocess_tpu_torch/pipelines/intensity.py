@@ -1,14 +1,35 @@
-"""Per-ROI fluorescence intensity: the batched, tables-only runner.
+"""Per-ROI fluorescence intensity: the serial runner and the batched,
+tables-only runner.
 
-Port of ``imageprocess_tpu/pipelines/intensity.py`` (``IntensityConfig``,
-``run_intensity_batched``).  Per (stage, time) key:
+Port of ``imageprocess_tpu/pipelines/intensity.py``.
+
+The serial runner (``run_intensity``, the CLI's default) takes one
+(stage, time) key at a time, with one key in flight: the host decodes the
+channel TIFFs (the native decoder, PIL for files it does not take) and
+loads the ROIs (polygons, a PNG union mask, or none: the whole frame as
+ROI 0); ``submit_key`` uploads the raw frames through page-locked staging
+and runs the device program without synchronising:
+
+- ``intensity_step_tiled`` when every polygon fits a tile and the
+  background scope is the full frame: the background per channel from the
+  strided raw frame (``ops.background.bg_value``), clip(x - bg), and the
+  statistics of each ROI's tile (``ops.roistats.roi_stats_tiled``, the
+  ``roistats_f32`` kernel on CUDA tensors);
+- ``intensity_step`` otherwise (an ROI-union background scope, a mask, the
+  whole frame, an ROI that needs the full frame): the same over full-frame
+  masks (``ops.roistats.roi_stats_full``, the same kernel).
+
+``finalize_key`` brings the statistics, areas and backgrounds back in one
+copy and makes the rows.
+
+The batched runner (``run_intensity_batched``), per chunk of keys:
 
 1. host, prefetch threads: one native call decodes the channel TIFFs,
    builds the strided u16 histogram and cuts each ROI's tile
    (``native.decode_tiff_batch_hist_tiles``); the per-channel background
    comes from that histogram (``_host_bg``);
-2. device, once per chunk of keys: the tiles are copied into page-locked
-   staging, sent with one non-blocking copy on a side stream, and
+2. device, once per chunk: the tiles are copied into page-locked staging,
+   sent with one non-blocking copy on a side stream, and
    ``parallel.runner.batched_tile_stats_step`` rasterizes the polygons and
    launches the tile-statistics kernel on that stream; one non-blocking
    copy brings the packed (B, 10, C, N) result back into page-locked
@@ -17,13 +38,11 @@ Port of ``imageprocess_tpu/pipelines/intensity.py`` (``IntensityConfig``,
    then recycles the chunk's host buffers (the copies read them late);
    ``report.excel`` writes the tables.
 
-Keys the batch program cannot take (another frame shape, a tile-size hint
-miss) run the same tile step as a batch of one, in key order.  Keys that
-need the full-frame program — mask-only ROIs, whole-frame ROI 0, an ROI
-that needs the full frame, non-u16 frames — raise ``NotImplementedError``
-(the serial intensity slice, ROADMAP Queue 1 item 7), which the streaming
-protocol logs per key.  So do, at entry, a ``bg_scope`` other than
-``"full"`` and the image outputs.
+Keys the batch program cannot take (another frame shape, non-u16 frames,
+no polygons, an ROI that needs the full frame) run ``process_key`` in key
+order; a ``bg_scope`` other than ``"full"`` runs the serial runner
+throughout.  The TIF/PNG image outputs are not ported: every runner raises
+``NotImplementedError`` for them before it reads a file.
 """
 
 from __future__ import annotations
@@ -37,14 +56,27 @@ import torch
 
 from .. import native
 from ..core import i18n, naming
-from ..core import roiio
+from ..core import roiio, tiffio
 from ..device import resolve_device
+from ..geom.polygon import pad_polygons
+from ..geom.rasterize import rasterize_polygons
+from ..ops.background import as_float32, bg_value
 from ..ops.percentile import p1000_of
+from ..ops.roistats import (
+    choose_tile, pad_local_polys, roi_stats_full, roi_stats_tiled, tile_offsets,
+)
 from ..ops.stats import STAT_FIELDS
 
 t = i18n.t
 ChannelGrammar = naming.ChannelGrammar
-SERIAL_SLICE = "the serial intensity path (ROADMAP Queue 1 item 7)"
+IMAGE_OUTPUTS = "the image outputs slice (ROADMAP Queue 1 item 14)"
+
+
+def refuse_image_outputs(do_images: bool) -> None:
+    """Raise for a config that asks for TIF/PNG image outputs."""
+    if do_images:
+        raise NotImplementedError(
+            f"TIF/PNG image outputs are not ported yet: {IMAGE_OUTPUTS}")
 
 
 @dataclass
@@ -142,35 +174,30 @@ def _key_channels(chmap, cfg: IntensityConfig):
 
 def load_key(key, chmap: Dict[int, str], roi_dir: str, cfg: IntensityConfig,
              hist_stride: int = 0, pool=None):
-    """Host side of one (stage, time) key: native TIFF decode (with the
-    strided histograms when *hist_stride* >= 1) + ROI polygons.  Returns
-    (stid, payload, hists): payload is (chs, imgs, polys, None) or a skip
-    message.  Raises NotImplementedError for ROIs given only as a mask and
-    for the whole-frame ROI 0."""
+    """Host side of one (stage, time) key: TIFF decode (the native decoder,
+    with the strided histograms when *hist_stride* >= 1; ``core.tiffio``
+    per file when it does not take the files) + ROI load.  Returns (stid,
+    payload, hists): payload is (chs, imgs, polys, union_mask) -- polys
+    None with a PNG union mask, both None for the whole frame as ROI 0 --
+    or a skip message; hists are the decoder's histograms or None."""
     s, t_code = key
     stid = s if t_code is None else f"{s}_{t_code}"
     chs, paths = _key_channels(chmap, cfg)
     if not chs:
         return stid, t("log_no_ch").format(stid=stid), None
     res = native.decode_tiff_batch_hist(paths, hist_stride, pool=pool)
-    if res is None or res[0].ndim != 3:
-        raise RuntimeError(
-            f"{stid}: the native TIFF decoder is unavailable or does not "
-            f"support {paths[0]} (single-sample frames only)")
-    imgs, hists = res
+    if res is not None and res[0].ndim == 3:
+        imgs, hists = res
+    else:  # a layout the decoder does not take, or RGB: channel 0
+        imgs = np.stack([tiffio.read_2d(p, dtype=None) for p in paths])
+        hists = None
+    H, W = imgs.shape[1:]
     base = naming.find_roi_basepath(
         roi_dir, os.path.basename(paths[0]), cfg.timelapse, cfg.grammar)
-    polys = (roiio.load_roi_polygons(base + ".json")
-             if os.path.exists(base + ".json") else [])
-    if polys:
-        return stid, (chs, imgs, polys, None), hists
-    if os.path.exists(base + ".png"):
-        raise NotImplementedError(
-            f"{stid}: mask-only ROIs need {SERIAL_SLICE}")
-    if cfg.skip_no_roi:
+    polys, union_mask = roiio.load_polys_or_mask(base, (H, W))
+    if polys is None and union_mask is None and cfg.skip_no_roi:
         return stid, t("log_no_roi").format(stid=stid), None
-    raise NotImplementedError(
-        f"{stid}: the whole-frame ROI 0 needs {SERIAL_SLICE}")
+    return stid, (chs, imgs, polys, union_mask), hists
 
 
 class PinnedPool:
@@ -192,6 +219,323 @@ class PinnedPool:
         self._free.setdefault((tuple(buf.shape), buf.dtype), []).append(buf)
 
 
+def to_device(arr: np.ndarray, dev: torch.device, staging: Optional[PinnedPool],
+              held: List[torch.Tensor]) -> torch.Tensor:
+    """*arr* as a tensor on *dev*.  With a *staging* pool, through a
+    page-locked buffer and a non-blocking copy (the buffer goes to *held*:
+    the caller returns it to the pool once the copy is certainly done);
+    without one, a plain copy.  u16 travels as int16 storage and is read as
+    uint16 on the device."""
+    if dev.type == "cpu":
+        return torch.from_numpy(np.ascontiguousarray(arr))
+    u16 = arr.dtype == np.uint16
+    src = np.ascontiguousarray(arr.view(np.int16) if u16 else arr)
+    if staging is None:
+        out = torch.from_numpy(src).to(dev)
+    else:
+        buf = staging.get(src.shape, torch.from_numpy(src[:0]).dtype)
+        buf.numpy()[...] = src
+        out = buf.to(dev, non_blocking=True)
+        held.append(buf)
+    return out.view(torch.uint16) if u16 else out
+
+
+def _channel_bgs(imgs: torch.Tensor, p1000s, scope, bg_mode: str,
+                 bg_stride: int) -> torch.Tensor:
+    """(C,) float32 backgrounds of the raw frames (u16 frames keep their
+    exact integer paths)."""
+    if bg_mode == "none":
+        return torch.zeros(imgs.shape[0], dtype=torch.float32, device=imgs.device)
+    return torch.stack([bg_value(im, int(p), scope, bg_mode, bg_stride)
+                        for im, p in zip(imgs, p1000s)])
+
+
+def _corrected(imgs: torch.Tensor, bgs: torch.Tensor, clip_neg: bool) -> torch.Tensor:
+    """clip(x - bg) in float32: the compact raw upload is cast on the card."""
+    out = as_float32(imgs) - bgs[:, None, None]
+    return torch.clamp(out, min=0.0) if clip_neg else out
+
+
+def intensity_step(
+    imgs: torch.Tensor,             # (C, H, W) raw u8 / u16 / float
+    polys: torch.Tensor,            # (N, V, 2) float32, padded
+    roi_valid: torch.Tensor,        # (N,) bool
+    p1000s,                         # (C,) percentile-in-thousandths per channel
+    masks_in: Optional[torch.Tensor] = None,  # (N, H, W) bool overrides polys
+    *,
+    bg_mode: str = "percentile",
+    bg_scope: str = "full",
+    clip_neg: bool = True,
+    bg_stride: int = 4,
+    use_masks: bool = False,
+):
+    """One (stage, time) key on the device over full-frame masks.  Returns
+    (stats dict of (C, N), area_px (N,) int32, bgs (C,) float32, imgs_bc
+    (C, H, W) float32)."""
+    C, H, W = imgs.shape
+    if use_masks:
+        masks = masks_in & roi_valid[:, None, None]
+    else:
+        masks = rasterize_polygons(polys, (H, W)) & roi_valid[:, None, None]
+    scope = masks.any(dim=0) if bg_scope == "roi_union" else None
+    bgs = _channel_bgs(imgs, p1000s, scope, bg_mode, bg_stride)
+    imgs_bc = _corrected(imgs, bgs, clip_neg)
+    stats, area_px = roi_stats_full(imgs_bc, masks)
+    return stats, area_px, bgs, imgs_bc
+
+
+def intensity_step_tiled(
+    imgs: torch.Tensor,             # (C, H, W) raw u8 / u16 / float
+    local_polys: torch.Tensor,      # (N, V, 2) tile-local
+    offsets: torch.Tensor,          # (N, 2) int32
+    roi_valid: torch.Tensor,        # (N,)
+    p1000s,                         # (C,)
+    *,
+    tile: int,
+    bg_mode: str = "percentile",
+    clip_neg: bool = True,
+    bg_stride: int = 4,
+):
+    """Full-frame-scope background + ROI-local tiled statistics (same
+    results as :func:`intensity_step`)."""
+    bgs = _channel_bgs(imgs, p1000s, None, bg_mode, bg_stride)
+    imgs_bc = _corrected(imgs, bgs, clip_neg).contiguous()
+    stats, area = roi_stats_tiled(imgs_bc, local_polys, offsets, roi_valid, tile)
+    return stats, area, bgs, imgs_bc
+
+
+def _device_inputs(imgs: np.ndarray, polys: Optional[List[np.ndarray]],
+                   union_mask: Optional[np.ndarray]):
+    """(padded polygons, validity, masks or None, ROI count) of one key:
+    the polygons, a PNG union mask as ROI 1, or the whole frame as ROI 0."""
+    H, W = imgs.shape[1:]
+    if polys is not None:
+        n = len(polys)
+        nb = _bucket(n)
+        vb = _bucket(max(len(p) for p in polys), 32)
+        pv = np.zeros((nb, vb, 2), np.float32)
+        pv[:n] = pad_polygons([np.asarray(p, np.float32) for p in polys], vb)
+        valid = np.zeros(nb, bool)
+        valid[:n] = True
+        return pv, valid, None, n
+    if union_mask is not None:
+        m = np.asarray(union_mask, bool)[None]
+        return np.zeros((1, 32, 2), np.float32), np.ones(1, bool), m, 1
+    return (np.zeros((1, 32, 2), np.float32), np.ones(1, bool),
+            np.ones((1, H, W), bool), 1)
+
+
+def _pack_key(stats, area, bgs) -> torch.Tensor:
+    """Statistics (9 x C x N), areas (N) and backgrounds (C) of one key as
+    one float64 vector (exact for every value): one copy brings them back."""
+    return torch.cat([torch.stack([stats[f].to(torch.float64) for f in STAT_FIELDS])
+                      .reshape(-1), area.to(torch.float64), bgs.to(torch.float64)])
+
+
+def submit_key(key, chmap: Dict[int, str], roi_dir: str, cfg: IntensityConfig,
+               loaded=None, device="cuda", staging: Optional[PinnedPool] = None):
+    """Launch one key's device work WITHOUT synchronising.  Returns a
+    pending record for :func:`finalize_key`, or (None, logs) when the key
+    is skipped.  With a *staging* pool the uploads are non-blocking, so a
+    caller that keeps one key in flight overlaps the host work of key k+1
+    with the device work of key k."""
+    dev = resolve_device(device)
+    stid, payload = loaded if loaded is not None else \
+        load_key(key, chmap, roi_dir, cfg)[:2]
+    if isinstance(payload, str):
+        return None, [payload]
+    chs, imgs, polys, union_mask = payload
+    H, W = imgs.shape[1:]
+    p1000s = [p1000_of(cfg.per_channel_p.get(ch, cfg.percentile)) for ch in chs]
+    held: List[torch.Tensor] = []
+
+    def up(arr):
+        return to_device(arr, dev, staging, held)
+
+    # ROI-local tiles need polygons and a background scope that does not
+    # need the union
+    tile = None
+    if polys is not None and cfg.bg_scope == "full":
+        tile = choose_tile(polys, H, W)
+    if tile is not None:
+        n_roi = len(polys)
+        offs = tile_offsets(polys, H, W, tile)
+        pv, offs_pad, valid = pad_local_polys(
+            polys, offs, _bucket(n_roi), _bucket(max(len(p) for p in polys), 32))
+        stats, area_px, bgs, imgs_bc = intensity_step_tiled(
+            up(imgs), up(pv), up(offs_pad), up(valid), p1000s, tile=tile,
+            bg_mode=cfg.bg_mode, clip_neg=cfg.clip_neg, bg_stride=cfg.bg_stride)
+    else:
+        pv, valid, masks, n_roi = _device_inputs(imgs, polys, union_mask)
+        stats, area_px, bgs, imgs_bc = intensity_step(
+            up(imgs), up(pv), up(valid), p1000s,
+            None if masks is None else up(masks), bg_mode=cfg.bg_mode,
+            bg_scope=cfg.bg_scope, clip_neg=cfg.clip_neg,
+            bg_stride=cfg.bg_stride, use_masks=masks is not None)
+    return {
+        "key": key, "stid": stid, "chs": chs, "polys": polys,
+        "union_mask": union_mask, "shape": (H, W), "n_roi": n_roi,
+        "n_bucket": valid.shape[0], "packed": _pack_key(stats, area_px, bgs),
+        "imgs_bc": imgs_bc, "imgs_raw": imgs, "held": held,
+    }, []
+
+
+def finalize_key(pending, cfg: IntensityConfig,
+                 staging: Optional[PinnedPool] = None):
+    """Wait for a :func:`submit_key` record (one device-to-host copy of its
+    statistics, areas and backgrounds) and make its rows.  The corrected
+    frames stay on the device.  Returns (rows, logs, extras)."""
+    s, t_code = pending["key"]
+    stid, chs, n_roi = pending["stid"], pending["chs"], pending["n_roi"]
+    C, nb = len(chs), pending["n_bucket"]
+    vals = pending["packed"].cpu().numpy()
+    for buf in pending["held"]:  # the uploads are done: the copy synchronised
+        staging.put(buf)
+    stats = vals[:len(STAT_FIELDS) * C * nb].reshape(len(STAT_FIELDS), C, nb)
+    area_px = vals[len(STAT_FIELDS) * C * nb:][:nb]
+    bgs = vals[-C:]
+    whole_frame = pending["polys"] is None and pending["union_mask"] is None
+    rows = []
+    for i in range(n_roi):
+        row = {
+            "stage": s,
+            "time": t_code if cfg.timelapse else None,
+            "roi": 0 if whole_frame else i + 1,
+            "area_px": int(area_px[i]),
+            "bg_mode": cfg.bg_mode,
+            "bg_scope": cfg.bg_scope,
+            "clip_neg": bool(cfg.clip_neg),
+            "bg_stride": int(cfg.bg_stride),
+        }
+        for ci, ch in enumerate(chs):
+            for k, f in enumerate(STAT_FIELDS):
+                v = stats[k, ci, i]
+                row[f"ch{ch}_{f}"] = int(v) if f == "npx" else float(v)
+            row[f"ch{ch}_bg"] = float(bgs[ci])
+            row[f"ch{ch}_p"] = float(cfg.per_channel_p.get(ch, cfg.percentile))
+            row[f"ch{ch}_color"] = cfg.channel_colors.get(ch, "Grayscale")
+        rows.append(row)
+    logs = [t("log_done_quant").format(stid=stid, roi_count=n_roi)]
+    extras = {"stid": stid, "chs": chs, "imgs_bc_dev": pending["imgs_bc"],
+              "imgs_raw": pending["imgs_raw"], "polys": pending["polys"],
+              "union_mask": pending["union_mask"], "shape": pending["shape"]}
+    return rows, logs, extras
+
+
+def process_key(key, chmap: Dict[int, str], roi_dir: str, cfg: IntensityConfig,
+                loaded=None, device="cuda"
+                ) -> Tuple[List[dict], List[str], Optional[dict]]:
+    """One (stage, time) key synchronously: (rows, logs, extras)."""
+    pending, logs = submit_key(key, chmap, roi_dir, cfg, loaded=loaded,
+                               device=device)
+    if pending is None:
+        return [], logs, None
+    return finalize_key(pending, cfg)
+
+
+def run_intensity(
+    folder: str,
+    cfg: IntensityConfig,
+    out_root: Optional[str] = None,
+    log=print,
+    prefetch_workers: int = 8,
+    run_log: bool = False,
+    progress: bool = False,
+    cancel=None,
+    device="cuda",
+) -> List[dict]:
+    """The intensity workload over an experiment *folder*, one key at a
+    time with one key in flight (the CLI's default path): discover the
+    TIFFs, build the (stage, time) -> {channel: path} keymap, quantify every
+    key, write the per-ROI tables under ``RES/xls``.  TIFF decode runs in a
+    thread pool *prefetch_workers* wide.
+
+    *cancel*: an optional zero-argument callable checked between keys; the
+    rows collected so far are still written.  ``run_log=True`` appends to
+    ``RES/logs/run_<ts>.txt`` with [START]/[END] stamps; ``progress=True``
+    reports ROI-weighted progress with an ETA.  A key that fails logs and is
+    skipped.  *device* is ``"cuda"`` (default; raises without a card) or
+    ``"cpu"``."""
+    from ..core.runlog import Progress, RunLogger
+    from ..parallel.runner import LoadError, PrefetchLoader
+    from ..report.excel import save_intensity_excel
+
+    dev = resolve_device(device)
+    refuse_image_outputs(cfg.do_tif or cfg.do_png or cfg.save_raw_crop_tif)
+    files = naming.list_tifs(folder)
+    keymap = naming.build_keymap(files, cfg.timelapse, cfg.grammar)
+    keymap = _apply_subset(keymap, cfg, log)
+    roi_dir = os.path.join(folder, "roi")
+    out_root = out_root or os.path.join(folder, "RES")
+
+    logger = RunLogger(os.path.join(out_root, "logs"), echo=log) if run_log else log
+    prog = None
+    key_weight = {}  # a failed key steps its full weight, so the bar ends
+    if progress:     # at 100 % and the ETA stays true
+        for key, chmap in keymap.items():
+            base = naming.find_roi_basepath(
+                roi_dir, os.path.basename(next(iter(chmap.values()))),
+                cfg.timelapse, cfg.grammar)
+            key_weight[key] = max(1, roiio.count_rois(base))
+        prog = Progress(sum(key_weight.values()), log=logger)
+
+    staging = PinnedPool() if dev.type == "cuda" else None
+    loader = PrefetchLoader(
+        lambda kv: (kv[0], kv[1], load_key(kv[0], kv[1], roi_dir, cfg)[:2]),
+        list(keymap.items()), workers=max(1, prefetch_workers))
+    rows_all: List[dict] = []
+
+    def drain(pending):
+        rows, logs, _ = finalize_key(pending, cfg, staging)
+        rows_all.extend(rows)
+        for line in logs:
+            logger(line)
+        if prog is not None:
+            prog.step(max(1, len(rows)), label=str(pending["key"][0]))
+
+    try:
+        in_flight = None  # one key pipelined: submit k+1, then drain k
+        for item in loader:
+            if isinstance(item, LoadError):
+                logger(t("err_worker").format(key=item.item[0], error=item.error))
+                if prog is not None:
+                    prog.step(key_weight.get(item.item[0], 1))
+                continue
+            key, chmap, loaded = item
+            if cancel is not None and cancel():
+                logger(t("cancelled"))
+                break
+            # per-key error isolation: a corrupt frame logs and is skipped
+            try:
+                pending, logs = submit_key(key, chmap, roi_dir, cfg,
+                                           loaded=loaded, device=dev,
+                                           staging=staging)
+            except Exception as e:  # noqa: BLE001
+                logger(t("err_worker").format(key=key, error=e))
+                pending, logs = None, []
+            for line in logs:
+                logger(line)
+            if pending is None:
+                if prog is not None:
+                    prog.step(key_weight.get(key, 1), label=str(key[0]))
+                continue
+            if in_flight is not None:
+                drain(in_flight)
+            in_flight = pending
+        if in_flight is not None:
+            drain(in_flight)
+
+        if cfg.do_xls and rows_all:
+            xls_dir = os.path.join(out_root, "xls")
+            os.makedirs(xls_dir, exist_ok=True)
+            save_intensity_excel(rows_all, keymap, xls_dir)
+            logger(t("saved_dir").format(dir=xls_dir))
+    finally:
+        if run_log:
+            logger.close()
+    return rows_all
+
+
 def run_intensity_batched(
     folder: str,
     cfg: IntensityConfig,
@@ -207,7 +551,8 @@ def run_intensity_batched(
     chunks in flight so host decode of chunk k+1 overlaps the device work
     of chunk k.  *device* is ``"cuda"`` (default; raises without a card)
     or ``"cpu"`` (the plain PyTorch version, for tests).  Returns the rows
-    in key order."""
+    in key order.  A ``bg_scope`` other than ``"full"`` runs
+    :func:`run_intensity`."""
     from ..ops.roistats import (
         choose_tile, gather_tiles, pad_local_polys, tile_offsets,
     )
@@ -216,11 +561,12 @@ def run_intensity_batched(
     from ..report.excel import save_intensity_excel
 
     dev = resolve_device(device)
+    refuse_image_outputs(cfg.do_tif or cfg.do_png or cfg.save_raw_crop_tif)
     if cfg.bg_scope != "full":
-        raise NotImplementedError(
-            f"bg_scope={cfg.bg_scope!r} needs {SERIAL_SLICE}")
-    if cfg.do_tif or cfg.do_png or cfg.save_raw_crop_tif:
-        raise NotImplementedError(f"TIF/PNG image outputs need {SERIAL_SLICE}")
+        log(t("int_images_serial"))
+        return run_intensity(folder, cfg, out_root=out_root, log=log,
+                             prefetch_workers=prefetch_workers, cancel=cancel,
+                             device=dev)
 
     files = naming.list_tifs(folder)
     keymap = naming.build_keymap(files, cfg.timelapse, cfg.grammar)
@@ -314,6 +660,8 @@ def run_intensity_batched(
         if isinstance(payload, str):
             return key, (stid, payload), None, None
         chs, imgs, polys, _ = payload
+        if polys is None or imgs.dtype != np.uint16:  # process_key's keys
+            return key, (stid, payload), None, None
         bgs = _host_bg(imgs, chs, cfg, hists)
         fit = _fit_hint(polys, *imgs.shape[1:])
         if fit is None:
@@ -365,28 +713,17 @@ def run_intensity_batched(
             clip_neg=cfg.clip_neg)
 
     def run_serial(entry):
-        """A key the batch program can't take: the same tile step as a
-        batch of one, with its own tile size, synchronously."""
+        """A key the batch program can't take: :func:`process_key`,
+        synchronously."""
         nonlocal n_done
-        key, stid, (chs, imgs, polys, _), bgs = entry
-        if imgs.dtype != np.uint16:
-            raise NotImplementedError(
-                f"{stid}: {imgs.dtype} frames need {SERIAL_SLICE}")
-        H, W = imgs.shape[1:]
-        tile = choose_tile(polys, H, W)
-        if tile is None:
-            raise NotImplementedError(
-                f"{stid}: an ROI needs the full frame: {SERIAL_SLICE}")
-        offs = tile_offsets(polys, H, W, tile)
-        nb = _bucket(len(polys))
-        lp, _, valid = pad_local_polys(
-            polys, offs, nb, _bucket(max(len(p) for p in polys), 32))
-        tiles = torch.from_numpy(gather_tiles(imgs, offs, nb, tile)[None])
-        packed = _step(tiles.to(dev), lp[None], valid[None], bgs[None])
-        _emit_rows(key, chs, len(polys), packed[0].cpu().numpy(), bgs)
-        log(t("log_done_quant").format(stid=stid, roi_count=len(polys)))
+        key, stid, payload = entry[:3]  # a batch entry has more
+        rows, logs, _ = process_key(key, None, roi_dir, cfg,
+                                    loaded=(stid, payload), device=dev)
+        rows_all.extend(rows)
+        for line in logs:
+            log(line)
         n_done += 1
-        frame_pool.put(imgs)
+        frame_pool.put(payload[1])
 
     def dispatch(chunk):
         """Build the padded chunk and launch its device step WITHOUT
@@ -483,11 +820,12 @@ def run_intensity_batched(
         if isinstance(payload, str):
             log(payload)
             return "skip", None
-        chs, imgs, _, _ = payload
-        if sig is None:
+        chs, imgs, polys, _ = payload
+        if sig is None and polys is not None:
             sig = (imgs.shape, tuple(chs))
-        if imgs.dtype != np.uint16 or (imgs.shape, tuple(chs)) != sig:
-            return "serial", (key, stid, payload, bgs_pre)
+        if (polys is None or imgs.dtype != np.uint16
+                or (imgs.shape, tuple(chs)) != sig):
+            return "serial", (key, stid, payload)
         return "batch", (key, stid, payload, bgs_pre, pre)
 
     was_cancelled = stream_batches(

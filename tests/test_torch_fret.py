@@ -282,8 +282,19 @@ def test_step_on_cpu_is_the_plain_version():
                                 {"do_tif": True}, {"bg_mode": "hist-mode"}],
                          ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
 def test_unsupported_configs_raise(exp_folder, tmp_path, kw):
+    """The image outputs are not ported: they raise, naming the ROADMAP
+    item, before any file is read.  The configs the batch does not cover
+    (bg_scope "roi_union", bg_mode "hist-mode") no longer raise: the
+    batched runner hands them to run_fret, as the JAX runner does, and the
+    rows are the JAX runner's."""
+    if "do_png" not in kw and "do_tif" not in kw:
+        jrows, trows, _ = _run_both(exp_folder, tmp_path, donor_ch=1,
+                                    acceptor_ch=2, do_xls=False, **kw)
+        assert len(trows) == 9
+        _assert_rows_match(trows, jrows)
+        return
     cfg = tfret.FretConfig(**kw)
-    with pytest.raises(NotImplementedError, match="serial FRET path"):
+    with pytest.raises(NotImplementedError, match="image outputs"):
         tfret.run_fret_batched(str(exp_folder), cfg, out_root=str(tmp_path),
                                device="cpu")
     assert not (tmp_path / "xls").exists()
@@ -308,10 +319,10 @@ def test_failed_kernel_build_raises(tmp_path, monkeypatch):
 
 
 def test_pairs_needing_the_full_frame_are_logged(tmp_path):
-    """An 8-bit pair and a pair whose ROI needs the whole frame raise
-    NotImplementedError naming the serial FRET path, logged per key; the
-    other pairs still give their rows, and a folder without pairs logs
-    that and writes nothing."""
+    """An 8-bit pair and a pair whose ROI needs the whole frame take the
+    runner's per-pair path (``process_pair``, the full-frame program for
+    the latter) and give the JAX runner's rows, in key order beside the
+    batched pairs; a folder without pairs logs that and writes nothing."""
     folder = tmp_path / "exp"
     (folder / "roi").mkdir(parents=True)
     rng = np.random.default_rng(4)
@@ -323,12 +334,11 @@ def test_pairs_needing_the_full_frame_are_logged(tmp_path):
     big = np.array([[0.5, 0.5], [190.5, 2.5], [180.5, 158.5], [3.5, 150.5]])
     _write_pair(folder, "S03", (160, 192), [big], rng)
     _write_pair(folder, "S04", (160, 192), [P2], rng)
-    logs = []
-    rows = tfret.run_fret_batched(str(folder), tfret.FretConfig(do_xls=False),
-                                  log=logs.append, batch_size=2, device="cpu")
-    assert [r["stage"] for r in rows] == ["S01", "S04"]
-    errs = [str(line) for line in logs if "serial FRET path" in str(line)]
-    assert len(errs) == 2 and "S02" in errs[0] and "S03" in errs[1], logs
+    jrows, rows, logs = _run_both(folder, tmp_path, do_xls=False)
+    assert [r["stage"] for r in rows] == ["S01", "S02", "S03", "S04"]
+    assert not any("ERROR" in str(line) or "오류" in str(line)
+                   for line in logs), logs
+    _assert_rows_match(rows, jrows)
     logs.clear()
     assert tfret.run_fret_batched(str(folder), tfret.FretConfig(donor_ch=7),
                                   out_root=str(tmp_path / "o"), log=logs.append,

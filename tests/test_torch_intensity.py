@@ -299,10 +299,22 @@ def test_decode_then_gather_path_matches_fused(timelapse_folder, tmp_path,
                                 {"do_tif": True}, {"save_raw_crop_tif": True}],
                          ids=lambda kw: next(iter(kw)))
 def test_unsupported_configs_raise(timelapse_folder, tmp_path, kw):
+    """The image outputs are not ported: they raise, naming the ROADMAP
+    item, before any file is read.  A bg_scope other than "full" no longer
+    raises: the batched runner hands the run to run_intensity, as the JAX
+    runner does, and the rows are the JAX runner's."""
+    if "bg_scope" in kw:
+        jrows, trows, logs = _run_both(timelapse_folder, tmp_path, channels=(1, 2),
+                                       timelapse=True, do_xls=False, **kw)
+        assert len(trows) == 16
+        assert logs[0] == tint.t("int_images_serial")
+        _assert_rows_match(trows, jrows)
+        return
     cfg = tint.IntensityConfig(channels=(1, 2), timelapse=True, **kw)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="image outputs"):
         tint.run_intensity_batched(str(timelapse_folder), cfg,
                                    out_root=str(tmp_path), device="cpu")
+    assert not (tmp_path / "xls").exists()
 
 
 def test_cuda_requested_without_card_raises(timelapse_folder, tmp_path,
@@ -331,8 +343,11 @@ def test_failed_kernel_build_raises(tmp_path, monkeypatch):
 
 def test_keys_needing_the_full_frame_are_logged(tmp_path):
     """Mask-only ROIs, a missing ROI with skip_no_roi=False (whole-frame
-    ROI 0) and 8-bit frames raise NotImplementedError per key, logged
-    through on_error; the other keys still produce their rows."""
+    ROI 0) and 8-bit frames take the runner's per-key path
+    (``process_key``, the full-frame program where they need it) and give
+    the JAX runner's rows, in key order beside the batched keys; with
+    skip_no_roi (the default) the key without ROI logs the reference's
+    message once."""
     from PIL import Image
 
     folder = tmp_path / "exp"
@@ -350,17 +365,12 @@ def test_keys_needing_the_full_frame_are_logged(tmp_path):
     _write_stage(folder, 4, (160, 192), [P2], rng)
     tiffio.write_tiff16(str(folder / "S05_1.TIF"),
                         rng.integers(10, 3000, (160, 192)).astype(np.uint16))
-    logs = []
-    cfg = tint.IntensityConfig(channels=(1,), skip_no_roi=False, do_xls=False)
-    rows = tint.run_intensity_batched(str(folder), cfg, out_root=str(tmp_path),
-                                      log=logs.append, batch_size=2,
-                                      device="cpu")
-    assert [r["stage"] for r in rows] == ["S01", "S04"]
-    errs = [str(line) for line in logs if "Queue 1 item 7" in str(line)]
-    assert len(errs) == 3, logs
-    assert any("S02" in e and "mask" in e for e in errs)
-    assert any("S03" in e for e in errs)
-    assert any("S05" in e and "whole-frame" in e for e in errs)
+    jrows, rows, logs = _run_both(folder, tmp_path, batch_size=2, channels=(1,),
+                                  skip_no_roi=False, do_xls=False)
+    assert [(r["stage"], r["roi"]) for r in rows] == [
+        ("S01", 1), ("S02", 1), ("S03", 1), ("S04", 1), ("S05", 0)]
+    assert not any("ERROR" in str(line) or "오류" in str(line) for line in logs)
+    _assert_rows_match(rows, jrows)
     # skip_no_roi (the default) skips S05 with the reference's message
     logs.clear()
     cfg = tint.IntensityConfig(channels=(1,), do_xls=False)

@@ -52,6 +52,10 @@ def test_main_path_import_pulls_in_no_jax_pil_pandas():
         "import imageprocess_tpu_torch.pipelines.fret\n"
         "import imageprocess_tpu_torch.ops.roi_stats_kernel\n"
         "import imageprocess_tpu_torch.ops.ratio\n"
+        "import imageprocess_tpu_torch.ops.background\n"
+        "import imageprocess_tpu_torch.core.tiffio\n"
+        "import imageprocess_tpu_torch.core.roiio\n"
+        "import imageprocess_tpu_torch.core.runlog\n"
         "import imageprocess_tpu_torch.kernels.build\n"
         "import imageprocess_tpu_torch.models.checkpoint\n"
         "import imageprocess_tpu_torch.morphology.binary\n"
