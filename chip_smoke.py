@@ -13,7 +13,10 @@ tables-only intensity runner
 the batched FRET tables runner
 (``imageprocess_tpu_torch.pipelines.fret.run_fret_batched``, channels 2/3
 as donor/acceptor), the serial runners ``run_intensity`` (the CLI's
-default intensity path) and ``run_fret``, and U-Net cell segmentation of
+default intensity path) and ``run_fret``, the Nesprin-2 rim-FRET runners
+``run_nesprin2`` and ``run_nesprin2_batched`` and the morphology workload
+``run_morphology`` (``imageprocess_tpu_torch.pipelines.nesprin2`` /
+``.morphology``, tables only), and U-Net cell segmentation of
 one 1536 x 2048 frame
 (``imageprocess_tpu_torch.segment.cellseg.segment_frame_unet``, the bundled
 golden checkpoint).  Phases, each of which exits non-zero on failure:
@@ -65,7 +68,22 @@ golden checkpoint).  Phases, each of which exits non-zero on failure:
    plain version: one key (F = 1, C = 2, R = 24, T = 128, unaligned
    origins) and the whole-frame ROI 0 of a bench frame (zero-padded to
    2048 x 2048), per call and by graph replay;
-10. segmentation: a deterministic synthcells "fluor" frame (u16), segmented
+10. rim FRET and morphology on the same dataset (channel 2 donor, 3 FRET,
+   0.223 um/px, rim 1.0 um = 4 px), once with the annulus off and once with
+   the annulus local background (0.9 / 1.8 um, T = 144) and QC thresholds
+   that remove pixels (saturation 2500, ratio clip 3.0): ``run_nesprin2``
+   warm, checked (every ``roistats_f32`` launch held to its plain version:
+   one per pair, two with the annulus), timed and once under
+   ``torch.profiler``; ``run_nesprin2_batched(batch_size=4)`` checked (one
+   or two launches per chunk; rows equal to the serial rows exactly) and
+   timed; the card's rows of the first and last pair equal the CPU's; stage
+   S01 against a numpy / scipy replica of the reference math at 1e-4
+   relative; ``roistats_f32`` timed at each launch's shape (one pair, one
+   chunk; C = 4 frames, C = 2 annulus medians, C = 4 re-ratio stack).
+   ``run_morphology``: 288 rows, the card's equal to the CPU's (areas
+   exact and equal to the rasterizer's mask counts, moment metrics within
+   1e-5 relative), seconds per run;
+11. segmentation: a deterministic synthcells "fluor" frame (u16), segmented
    to polygons once warm and three times timed (e2e Mpix/s = H*W / wall
    seconds, frame on the host to polygons), once more with per-phase CUDA
    events and the CCL round counts.  Checks: the card's label map agrees
@@ -73,7 +91,7 @@ golden checkpoint).  Phases, each of which exits non-zero on failure:
    the card's post-process fed the CPU's network output gives the CPU's
    label map exactly, and the generalist checkpoint finds the generator's
    cells (recall >= 0.90, mean IoU >= 0.70 at IoU >= 0.3);
-11. kernel and plain times per chunk: each kernel's time per call through
+12. kernel and plain times per chunk: each kernel's time per call through
    its Python wrapper against the plain version's (CUDA events around 50
    calls, in turns plain / kernel / kernel / plain), the kernel's device
    time by CUDA graph replay (the wrapper's host time left out), the grid
@@ -87,7 +105,8 @@ kernel table (``ms`` per call, ``device_ms`` by graph replay, ``bound_ms``,
 ``bound_by``, ``library_ms`` -- null: no single PyTorch call computes
 masked moments with six exact order statistics -- and
 ``launches_per_run``; ``roistats_f32`` also ``launches_serial`` and its
-``serial_shapes`` times), then ``{"ok": true, "device": {...}}``.  Without
+``serial_shapes`` times, ``launches_nesprin2`` and its ``nesprin2_shapes``
+times), then ``{"ok": true, "device": {...}}``.  Without
 a card, or outside a checkout, it prints no result and exits non-zero.
 
 ``python3 chip_smoke.py --kernels-only`` stops after phase 3.
@@ -1085,15 +1104,16 @@ class CheckedRoiRows:
     (the tiles of ``roi_stats_tiled``, the whole frames of
     ``roi_stats_full``) is held to the plain version on the same device
     tensors (outside the launch count: the plain version launches no
-    kernel); the inputs of the first launch of each mask shape are kept
-    for the timings."""
+    kernel); the inputs of the first launch of each mask shape (``first``)
+    and of each (channels, mask shape) (``by_launch``) are kept for the
+    timings."""
 
     def __init__(self, what: str):
         from imageprocess_tpu_torch.ops import roistats as trs
 
         self.trs, self.what = trs, what
         self.real = trs.roi_stat_rows
-        self.errs, self.first = [], {}
+        self.errs, self.first, self.by_launch = [], {}, {}
 
     def __enter__(self):
         from imageprocess_tpu_torch.ops import roi_stats_kernel as rsk
@@ -1107,6 +1127,8 @@ class CheckedRoiRows:
                     f"{self.what} launch {len(self.errs)} {tuple(masks.shape)}",
                     ROW_EXACT, ROW_MOMENTS))
                 self.first.setdefault(tuple(masks.shape), (frames, masks, offs))
+                self.by_launch.setdefault((frames.shape[1], tuple(masks.shape)),
+                                          (frames, masks, offs))
             return out
 
         self.trs.roi_stat_rows = checked
@@ -1220,6 +1242,294 @@ def profile_run(fn, top: int = 8) -> dict:
     return {"wall_s": wall, "device_ms": busy_ms, "events": len(spans),
             "idle_share": 1.0 - busy_ms / (wall * 1e3),
             "top": [(n[:60], round(ms, 4)) for n, ms in names]}
+
+
+# ------------------------------------------------------------------ rim FRET, morphology
+
+N2_PX_UM, N2_RIM_UM = 0.223, 1.0     # rim 4 px
+N2_CONFIGS = {  # name: (Nesprin2Config options, roistats_f32 launches per pair or chunk)
+    "annulus off": ({}, 1),
+    "annulus on + QC": (dict(annulus_on=True, ann_in_um=0.9, ann_out_um=1.8,
+                             sat_filter_on=True, sat_threshold=2500.0,
+                             clip_ratio_on=True, clip_ratio_max=3.0), 2),
+}
+N2_MOMENTS = ("_mean", "_std")
+
+
+def n2_config(name: str, **kw):
+    from imageprocess_tpu_torch.pipelines.nesprin2 import Nesprin2Config
+
+    return Nesprin2Config(donor_ch=CHANNELS[0], fret_ch=CHANNELS[1], px_um=N2_PX_UM,
+                          rim_um=N2_RIM_UM, **N2_CONFIGS[name][0], **kw)
+
+
+def nesprin2_reference_rows(folder: str, stage: str, cfg) -> list:
+    """numpy / scipy replica of the reference rim-FRET math for one pair,
+    in float64: saturation -> NaN, each channel's background np.percentile
+    of its finite pixels, clip at 0, eps = max(eps_abs, np.percentile of
+    the finite corrected donor inside the union), the ratio and its clip ->
+    NaN, the rim from ``scipy.ndimage.distance_transform_edt`` of the
+    union, and per ROI the annulus (``binary_dilation`` with squares)
+    ``np.nanmedian`` backgrounds, the re-ratio and the statistics over the
+    finite pixels of mask & rim.  The masks are the port's own rasterizer
+    output on the CPU (the union on the full frame, each ROI in its tile, as
+    the runner places them)."""
+    import numpy as np
+    import scipy.ndimage as ndi
+    import torch
+
+    from imageprocess_tpu_torch import native
+    from imageprocess_tpu_torch.geom.polygon import pad_polygons
+    from imageprocess_tpu_torch.geom.rasterize import rasterize_polygons
+    from imageprocess_tpu_torch.ops.roistats import (
+        choose_tile, pad_local_polys, tile_offsets,
+    )
+
+    polys = bench_polys()
+    D, A = (native.decode_tiff(os.path.join(folder, f"{stage}_{ch}.TIF"))
+            .astype(np.float64) for ch in CHANNELS)
+    if cfg.sat_filter_on:
+        sat = (D >= cfg.sat_threshold) | (A >= cfg.sat_threshold)
+        D[sat] = np.nan
+        A[sat] = np.nan
+    pv = pad_polygons([np.asarray(p, np.float32) for p in polys], 32)
+    union = rasterize_polygons(torch.from_numpy(pv), (H, W)).any(dim=0).numpy()
+    margin = cfg.ann_out_px + 1 if cfg.annulus_on else 0
+    t = choose_tile(polys, H, W, margin=margin)
+    offs = tile_offsets(polys, H, W, t, margin=margin)
+    lp, _, _ = pad_local_polys(polys, offs, len(polys), 32)
+    masks = rasterize_polygons(torch.from_numpy(lp), (t, t)).numpy()
+
+    def bgc(img):
+        return np.maximum(img - np.percentile(img[np.isfinite(img)], cfg.percentile), 0.0)
+
+    Dc, Ac = bgc(D), bgc(A)
+    eps = max(cfg.eps_abs, float(np.percentile(Dc[union & np.isfinite(Dc)],
+                                               cfg.eps_percentile)))
+
+    def ratio(n, d):
+        r = (n + eps) / (d + eps)
+        return np.where(r > cfg.clip_ratio_max, np.nan, r) if cfg.clip_ratio_on else r
+
+    R, R_alt = ratio(Ac, Dc), ratio(Dc, Ac)
+    dist = ndi.distance_transform_edt(union)
+    rim = (dist > 0) & (dist <= cfg.rim_px)
+
+    def square(k):
+        return np.ones((2 * k + 1, 2 * k + 1), bool)
+
+    def nanmed(v):
+        return float(np.nanmedian(v)) if np.isfinite(v).any() else 0.0
+
+    rows = []
+    for i, m in enumerate(masks):
+        sl = (slice(offs[i, 0], offs[i, 0] + t), slice(offs[i, 1], offs[i, 1] + t))
+        roi_mask = m & rim[sl]
+        r_roi, r_alt = R[sl], R_alt[sl]
+        if cfg.annulus_on:
+            ann = ndi.binary_dilation(m, square(cfg.ann_out_px)) & \
+                ~ndi.binary_dilation(m, square(cfg.ann_in_px))
+            nc = np.maximum(Ac[sl] - nanmed(Ac[sl][ann]), 0.0)
+            dc = np.maximum(Dc[sl] - nanmed(Dc[sl][ann]), 0.0)
+            r_roi, r_alt = ratio(nc, dc), ratio(dc, nc)
+        v = r_roi[roi_mask]
+        v = v[np.isfinite(v)]
+        rows.append({
+            "area_px": int(roi_mask.sum()), "npx": int(v.size), "eps": eps,
+            "ratio_mean": v.mean(), "ratio_median": np.median(v), "ratio_std": v.std(),
+            "ratio_p5": np.percentile(v, 5), "ratio_p95": np.percentile(v, 95),
+            "ratio_DoverF_mean": np.nanmean(r_alt[roi_mask]),
+            "donor_mean": np.nanmean(Dc[sl][roi_mask]),
+            "fret_mean": np.nanmean(Ac[sl][roi_mask])})
+    return rows
+
+
+def run_nesprin2_paths(folder: str, device: str, name: str, reps: int = 2) -> dict:
+    """``run_nesprin2`` and ``run_nesprin2_batched(batch_size=4)`` on the
+    smoke dataset under one config of ``N2_CONFIGS``.  Serial: a warm run,
+    a checked run (every ``roistats_f32`` launch held to its plain version,
+    the count set to 0 just before it and read just after), *reps* timed
+    runs, one run under ``torch.profiler``; the rows of the first and the
+    last pair against the same runner on the CPU, and stage S01 against the
+    numpy / scipy replica at 1e-4 relative.  Batched: a checked run whose
+    rows must equal the serial rows exactly, *reps* timed runs."""
+    import torch
+
+    from imageprocess_tpu_torch.ops import roi_stats_kernel as rsk
+    from imageprocess_tpu_torch.pipelines import nesprin2
+
+    per, n_rows = N2_CONFIGS[name][1], N_STAGES * N_ROI
+    cfg = n2_config(name)
+    mpix = N_STAGES * 2 * H * W / 1e6
+    logs = []
+    runners = {
+        "serial": lambda: nesprin2.run_nesprin2(
+            folder, cfg, out_root=os.path.join(folder, "RES_n2"), log=logs.append,
+            device=device),
+        "batched": lambda: nesprin2.run_nesprin2_batched(
+            folder, cfg, out_root=os.path.join(folder, "RES_n2_batched"),
+            log=logs.append, batch_size=4,
+            prefetch_workers=max(8, (os.cpu_count() or 1) * 2), device=device)}
+    out = {}
+    for kind, one_run in runners.items():
+        t0 = time.perf_counter()
+        one_run()
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        rsk.reset_launches()
+        with CheckedRoiRows(f"nesprin2 {kind} ({name})") as chk:
+            rows = one_run()
+        torch.cuda.synchronize()
+        launches = rsk.launches["roistats_f32"]
+        want = per * (N_STAGES if kind == "serial" else N_STAGES // 4)
+        if launches != want or len(chk.errs) != want:
+            raise SmokeError(f"nesprin2 {kind} ({name}): {launches} roistats_f32 "
+                             f"launches, {len(chk.errs)} checked, want {want}")
+        errors = [line for line in logs if "ERROR" in str(line) or "오류" in str(line)]
+        if errors:
+            raise SmokeError(f"nesprin2 {kind} ({name}) logged errors: {errors[:3]}")
+        if len(rows) != n_rows:
+            raise SmokeError(f"nesprin2 {kind} ({name}): {len(rows)} rows, want {n_rows}")
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            again = one_run()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if len(again) != n_rows:
+                raise SmokeError(f"nesprin2 {kind} ({name}): a timed run lost rows")
+        out[kind] = {"rows": rows, "launches": launches, "warm_s": warm,
+                     "steady_s": min(times), "times_s": times,
+                     "warm_mpix_s": mpix / warm, "steady_mpix_s": mpix / min(times),
+                     "inputs": chk.by_launch, **chk.worst()}
+    serial = out["serial"]["rows"]
+    _rows_equal(out["batched"]["rows"], serial, f"nesprin2 batched vs serial ({name})",
+                (), n_rows)
+    for stem in ("RES_n2", "RES_n2_batched"):
+        for ext in ("csv", "xlsx"):
+            if not os.path.exists(os.path.join(folder, stem, "xls",
+                                               f"nesprin2_fret_perROI.{ext}")):
+                raise SmokeError(f"nesprin2 ({name}): {stem}/xls/...{ext} not written")
+    area, npx_ref = sum(r["area_px"] for r in serial), 0
+    # QC may leave an ROI's rim without a finite ratio (a NaN row, equal on
+    # the card and in the plain version); without QC every row is finite
+    stat_cols = ("ratio_mean", "ratio_median", "ratio_p95", "donor_mean")
+    nan_rows = sum(not all(math.isfinite(r[c]) for c in stat_cols) for r in serial)
+    if nan_rows > (n_rows // 4 if cfg.sat_filter_on or cfg.clip_ratio_on else 0) \
+            or not all(math.isfinite(r["eps"]) and r["area_px"] > 0 for r in serial):
+        raise SmokeError(f"nesprin2 ({name}): {nan_rows} rows with non-finite "
+                         "statistics, or a non-finite eps or an empty rim")
+    # the card against the CPU, first and last pair
+    for stage in (1, N_STAGES):
+        cpu = nesprin2.run_nesprin2(folder, n2_config(name, subset_stage=stage,
+                                                      do_xls=False),
+                                    log=lambda *_: None, device="cpu")
+        card = [r for r in serial if r["stage"] == f"S{stage:02d}"]
+        _rows_equal(card, cpu, f"nesprin2 card vs CPU ({name}) S{stage:02d}",
+                    N2_MOMENTS, N_ROI)
+    # the numpy / scipy replica, one pair
+    ref_rel = 0.0
+    ref = nesprin2_reference_rows(folder, "S01", cfg)
+    for r, want_row in zip(serial[:N_ROI], ref):
+        if r["area_px"] != want_row["area_px"]:
+            raise SmokeError(f"nesprin2 ({name}) S01 roi {r['roi']}: area "
+                             f"{r['area_px']} vs replica {want_row['area_px']}")
+        npx_ref += want_row["npx"]
+        for k, b in want_row.items():
+            if k in ("area_px", "npx"):
+                continue
+            if math.isnan(b) and math.isnan(r[k]):
+                continue
+            rel = abs(r[k] - b) / max(abs(b), 1e-9)
+            ref_rel = max(ref_rel, rel)
+            if not rel <= 1e-4:
+                raise SmokeError(f"nesprin2 ({name}) S01 roi {r['roi']} {k}: {r[k]} vs "
+                                 f"replica {b} ({rel:.2e} rel)")
+    area_s01 = sum(r["area_px"] for r in serial[:N_ROI])
+    if cfg.sat_filter_on and not npx_ref < area_s01:
+        raise SmokeError(f"nesprin2 ({name}): the QC thresholds removed no pixel")
+    pr = profile_run(runners["serial"])
+    return {"serial": out["serial"], "batched": out["batched"], "profile": pr,
+            "replica_max_rel": ref_rel, "rim_px_total": area, "nan_rows": nan_rows,
+            "s01_rim_px": area_s01, "s01_finite_px": npx_ref, "tile": next(
+                iter(out["serial"]["inputs"]))[1][-1]}
+
+
+MOR_CLOSE = ("area_um2", "major_um", "minor_um", "aspect_ratio", "roundness",
+             "centroid_x", "centroid_y", "circularity", "solidity")
+
+
+def run_morphology_path(folder: str, device: str, reps: int = 2) -> dict:
+    """``run_morphology`` (tables only, channel 2) on the smoke dataset: 288
+    rows on the card against the same run on the CPU (areas and the vertex
+    math exact, what derives from the moment sums within REL_TOL; the
+    orientation of these circles is the direction of a near-null axis and
+    is left out), ``area_px`` against the rasterizer's own tile masks, the
+    report files, and *reps* timed runs."""
+    import numpy as np
+    import torch
+
+    from imageprocess_tpu_torch.geom.rasterize import rasterize_polygons
+    from imageprocess_tpu_torch.ops.roistats import (
+        choose_tile, pad_local_polys, tile_offsets,
+    )
+    from imageprocess_tpu_torch.pipelines import morphology
+
+    cfg = morphology.MorConfig(px_um=N2_PX_UM, sel_ch=CHANNELS[0], save_full=False,
+                               save_crop=False)
+    out_root = os.path.join(folder, "RES_MOR_smoke")
+    logs = []
+
+    def one_run(dev=device):
+        return morphology.run_morphology(folder, cfg, out_root=out_root,
+                                         log=logs.append, device=dev)
+
+    t0 = time.perf_counter()
+    rows = one_run()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    cpu = one_run("cpu")
+    n_rows = N_STAGES * N_ROI
+    if len(rows) != n_rows or len(cpu) != n_rows:
+        raise SmokeError(f"morphology: {len(rows)} rows, {len(cpu)} on the CPU, "
+                         f"want {n_rows}: {logs[-3:]}")
+    polys = bench_polys()
+    t = choose_tile(polys, H, W)
+    lp, _, _ = pad_local_polys(polys, tile_offsets(polys, H, W, t), N_ROI, 32)
+    counts = rasterize_polygons(torch.from_numpy(lp), (t, t)).sum(dim=(1, 2)).tolist()
+    worst = 0.0
+    for a, b in zip(rows, cpu):
+        if list(a) != list(b):
+            raise SmokeError(f"morphology: columns {list(a)} vs {list(b)}")
+        if a["area_px"] != b["area_px"] or a["area_px"] != counts[a["roi"] - 1]:
+            raise SmokeError(f"morphology {a['stage']} roi {a['roi']}: area "
+                             f"{a['area_px']}, CPU {b['area_px']}, mask "
+                             f"{counts[a['roi'] - 1]}")
+        for k, v in b.items():
+            if k == "orientation_deg":
+                continue
+            if k in MOR_CLOSE:
+                rel = abs(a[k] - v) / max(abs(v), 1e-9)
+                worst = max(worst, rel)
+                if not rel <= REL_TOL:
+                    raise SmokeError(f"morphology {a['stage']} roi {a['roi']} {k}: "
+                                     f"{a[k]} vs CPU {v} ({rel:.2e} rel)")
+            elif a[k] != v:
+                raise SmokeError(f"morphology {a['stage']} roi {a['roi']} {k}: "
+                                 f"{a[k]!r} vs CPU {v!r}")
+    if not np.isfinite([r[k] for r in rows for k in MOR_CLOSE]).all():
+        raise SmokeError("morphology: non-finite metrics")
+    for ext in ("csv", "xlsx"):
+        if not os.path.exists(os.path.join(out_root, "xls", f"morphology_perROI.{ext}")):
+            raise SmokeError(f"morphology_perROI.{ext} was not written")
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        one_run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return {"rows": len(rows), "warm_s": warm, "times_s": times,
+            "steady_s": min(times), "max_rel": worst, "profile": profile_run(one_run)}
 
 
 BIG_ROI = 600      # px across: choose_tile gives 608, the device-memory variant
@@ -1819,6 +2129,55 @@ def main(argv) -> int:
               f"{H}x{W} frame, origin and output of the {tm['valid']} valid of "
               f"{tm['lanes']} lanes, {tm['ops']:.0f} f32 ops) = "
               f"{100 * tm['bound_ms'] / tm['device_ms']:.1f} % of bound on the device")
+    n2, n2_times = {}, {}
+    for name, (_, per) in N2_CONFIGS.items():
+        nr = n2[name] = run_nesprin2_paths(data, "cuda", name)
+        sr, br, pr = nr["serial"], nr["batched"], nr["profile"]
+        print(f"nesprin2 path ok ({name}, rim {n2_config(name).rim_px} px, tile "
+              f"{nr['tile']}): run_nesprin2(device='cuda') {len(sr['rows'])} rows, "
+              f"roistats_f32 launches {sr['launches']} ({per} per pair); "
+              f"run_nesprin2_batched(batch_size=4) rows equal to the serial rows, "
+              f"launches {br['launches']} ({per} per chunk); every launch equal to "
+              f"its plain version (max_abs_err={max(sr['max_abs_err'], br['max_abs_err'])} "
+              f"max_rel_err_moments="
+              f"{max(sr['max_rel_err_moments'], br['max_rel_err_moments'])}); card "
+              f"rows == CPU rows for S01 and S{N_STAGES:02d}; numpy/scipy replica of "
+              f"S01 max rel err {nr['replica_max_rel']:.3e} ({nr['s01_finite_px']} "
+              f"finite of {nr['s01_rim_px']} rim pixels; {nr['nan_rows']} rows of the "
+              f"run without a finite ratio)")
+        for mode, r in (("serial", sr), ("batched", br)):
+            print(f"nesprin2 {mode} e2e ({name}) on {card}: warm "
+                  f"{r['warm_mpix_s']:.2f} Mpix/s ({r['warm_s']:.4f} s), steady "
+                  f"{r['steady_mpix_s']:.2f} Mpix/s (best of "
+                  f"{[round(x, 4) for x in r['times_s']]} s)")
+        print(f"nesprin2 serial ({name}) under torch.profiler on {card}: one run "
+              f"{pr['wall_s']:.4f} s, device busy {pr['device_ms']:.3f} ms over "
+              f"{pr['events']} kernels and copies ({pr['events'] / N_STAGES:.0f} per "
+              f"pair; idle {100 * pr['idle_share']:.1f} % of the run); largest: "
+              f"{pr['top']}")
+        for mode in ("serial", "batched"):
+            for (C, mshape), inputs in nr[mode]["inputs"].items():
+                what = "pair" if mode == "serial" else "chunk"
+                n2_times[f"{name}, one {what}, C={C}, masks {list(mshape)}"] = \
+                    time_roi_rows(inputs)
+    for label, tm in n2_times.items():
+        print(f"roistats_f32 at nesprin2 ({label}) on {card}: frames {tm['shape'][0]} "
+              f"(use_smem={tm['use_smem']}, stage_mask={tm['stage_mask']}), grid "
+              f"{tm['grid']} CTAs; kernel {tm['ms']:.4f} ms per call, "
+              f"{tm['device_ms']:.4f} ms on the device (graph replay), plain "
+              f"{tm['plain_ms']:.4f} ms (turns {[round(x, 4) for x in tm['turns']]}); "
+              f"bound {tm['bound_ms']:.5f} ms by {tm['bound_by']} ({tm['bytes']} B, "
+              f"{tm['valid']} valid of {tm['lanes']} lanes, {tm['ops']:.0f} f32 ops) = "
+              f"{100 * tm['bound_ms'] / tm['device_ms']:.1f} % of bound on the device")
+    mor = run_morphology_path(data, "cuda")
+    mp = mor["profile"]
+    print(f"morphology path ok: run_morphology(device='cuda') {mor['rows']} rows; "
+          f"card rows == CPU rows (area_px equal to the rasterizer's mask counts, "
+          f"moment metrics max rel err {mor['max_rel']:.3e}); warm {mor['warm_s']:.4f} "
+          f"s, steady {mor['steady_s']:.4f} s per run on {card} (best of "
+          f"{[round(x, 4) for x in mor['times_s']]}); under torch.profiler one run "
+          f"{mp['wall_s']:.4f} s, device busy {mp['device_ms']:.3f} ms over "
+          f"{mp['events']} kernels and copies (idle {100 * mp['idle_share']:.1f} %)")
     seg = run_seg_path("cuda")
     print(f"seg path ok: {H}x{W} u16 synthcells fluor frame, golden U-Net "
           f"(tile 256, overlap 32, n_iter 120), {seg['polygons']} polygons; "
@@ -1884,6 +2243,9 @@ def main(argv) -> int:
                          max(fres["max_abs_err"], worst_f["max_abs_err"],
                              vres["max_abs_err"],
                              *(sr["max_abs_err"] for sr in serial.values()),
+                             *(nr[k]["max_abs_err"] for nr in n2.values()
+                               for k in ("serial", "batched")),
+                             *(tm["max_abs_err"] for tm in n2_times.values()),
                              *(tm["max_abs_err"] for tm in serial_times.values())),
                          ftiming),
     }
@@ -1892,7 +2254,14 @@ def main(argv) -> int:
                             "variant_runs": vres["launches"]},
         "serial_shapes": {name: {k: tm[k] for k in (
             "shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "bytes",
-            "valid", "grid", "use_smem")} for name, tm in serial_times.items()}}}
+            "valid", "grid", "use_smem")} for name, tm in serial_times.items()},
+        "launches_nesprin2": {f"{mode} ({name})": nr[mode]["launches"]
+                              for name, nr in n2.items()
+                              for mode in ("serial", "batched")},
+        "nesprin2_shapes": {label: {k: tm[k] for k in (
+            "shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "bytes",
+            "valid", "grid", "use_smem", "stage_mask")}
+            for label, tm in n2_times.items()}}}
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": KERNELS[name][0],
         "replaces": KERNELS[name][1], "launches": launches,

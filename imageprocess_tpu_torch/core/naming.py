@@ -234,3 +234,34 @@ def build_keymap(
         return (s_idx, t_idx)
 
     return dict(sorted(keymap.items(), key=order))
+
+
+def build_pairs_by_channel(
+    files: Sequence[str],
+    timelapse: bool,
+    donor_ch: int,
+    acceptor_ch: int,
+    grammar: ChannelGrammar = ChannelGrammar.END_ANCHORED,
+) -> Tuple[List[Tuple[Key, str, str]], Dict[Key, Dict[int, str]]]:
+    """(key, donor_path, acceptor_path) for every key holding both channels.
+    Reference: the Nesprin2 FRET script, :1264-1285."""
+    keymap = build_keymap(files, timelapse, grammar)
+    pairs = []
+    for key, chmap in keymap.items():
+        if donor_ch in chmap and acceptor_ch in chmap:
+            pairs.append((key, chmap[donor_ch], chmap[acceptor_ch]))
+    return pairs, keymap
+
+
+def swap_channel_in_name(path: str, new_channel: int) -> str:
+    """Rewrite the trailing channel token of *path* to *new_channel* —
+    used to locate the intensity / acceptor-only frames next to a FRET pair.
+    Reference: the Nesprin2 FRET script, :370-384."""
+    d, base = os.path.split(path)
+    name, ext = os.path.splitext(base)
+    new_name, n = re.subn(
+        r"(?i)([_-])(?:ch|c)?\d+$", rf"\g<1>{int(new_channel)}", name
+    )
+    if n == 0:
+        new_name = f"{name}_{int(new_channel)}"
+    return os.path.join(d, new_name + ext)

@@ -1,10 +1,81 @@
-"""Host-side polygon padding (the port's copy)."""
+"""Host-side polygon vertex math and padding (the port's copy).
+
+Vertex counts are tiny (tens), so this stays on the host; only
+rasterization and pixel statistics go to the device.  Formula parity with
+the reference: perimeter, shoelace area and the Andrew monotone-chain hull
+of src/MOR_by_ROI.py:166-191, the signed-area centroid with its
+vertex-mean fallback of src/roi_manual_drawer.py:421-433.
+"""
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Sequence, Tuple
 
 import numpy as np
+
+
+def polygon_perimeter(poly: np.ndarray) -> float:
+    """Sum of closed-ring segment lengths."""
+    pts = np.asarray(poly, dtype=float)
+    diffs = pts[(np.arange(len(pts)) + 1) % len(pts)] - pts
+    return float(np.sqrt((diffs**2).sum(axis=1)).sum())
+
+
+def shoelace_area(poly: np.ndarray) -> float:
+    pts = np.asarray(poly, dtype=float)
+    x, y = pts[:, 0], pts[:, 1]
+    return float(0.5 * abs(np.dot(x, np.roll(y, -1)) - np.dot(y, np.roll(x, -1))))
+
+
+def polygon_centroid(poly: np.ndarray) -> Tuple[float, float]:
+    """Area-weighted centroid (signed shoelace); degenerate polygons fall
+    back to the vertex mean."""
+    pts = np.asarray(poly, dtype=float)
+    if pts.shape[0] < 3:
+        return float(pts[:, 0].mean()), float(pts[:, 1].mean())
+    x, y = pts[:, 0], pts[:, 1]
+    xn, yn = np.roll(x, -1), np.roll(y, -1)
+    cross = x * yn - xn * y
+    area = 0.5 * cross.sum()
+    if abs(area) < 1e-6:
+        return float(x.mean()), float(y.mean())
+    cx = ((x + xn) * cross).sum() / (6.0 * area)
+    cy = ((y + yn) * cross).sum() / (6.0 * area)
+    return float(cx), float(cy)
+
+
+def convex_hull(points: np.ndarray) -> np.ndarray:
+    """Andrew monotone chain; collinear points dropped (cross <= 0 popped)."""
+    pts = np.unique(np.asarray(points, dtype=float), axis=0)
+    pts = pts[np.lexsort((pts[:, 1], pts[:, 0]))]
+    if len(pts) <= 1:
+        return pts
+
+    def cross(o, a, b):
+        return (a[0] - o[0]) * (b[1] - o[1]) - (a[1] - o[1]) * (b[0] - o[0])
+
+    lower: List[tuple] = []
+    for p in pts:
+        while len(lower) >= 2 and cross(lower[-2], lower[-1], p) <= 0:
+            lower.pop()
+        lower.append(tuple(p))
+    upper: List[tuple] = []
+    for p in reversed(pts):
+        while len(upper) >= 2 and cross(upper[-2], upper[-1], p) <= 0:
+            upper.pop()
+        upper.append(tuple(p))
+    return np.array(lower[:-1] + upper[:-1], dtype=float)
+
+
+def polygon_bbox(poly: np.ndarray) -> Tuple[int, int, int, int]:
+    """Integer pixel bbox (x0, y0, x1, y1) inclusive-exclusive covering the
+    polygon's pixel-center tests."""
+    pts = np.asarray(poly, dtype=float)
+    x0 = int(np.floor(pts[:, 0].min()))
+    y0 = int(np.floor(pts[:, 1].min()))
+    x1 = int(np.ceil(pts[:, 0].max())) + 1
+    y1 = int(np.ceil(pts[:, 1].max())) + 1
+    return x0, y0, x1, y1
 
 
 def pad_polygons(

@@ -72,11 +72,13 @@ def binary_closing_skimage(img: torch.Tensor, se: np.ndarray) -> torch.Tensor:
 def square_dilation(img: torch.Tensor, k: int) -> torch.Tensor:
     """Dilation with a (2k+1)x(2k+1) all-ones structure, border False —
     scipy.ndimage.binary_dilation(img, np.ones(...)) parity, as one max
-    pool (its padding never wins the max)."""
+    pool (its padding never wins the max).  *img* is (..., H, W): every
+    leading index is dilated on its own."""
     if k <= 0:
         return img.to(torch.bool)
-    x = img.to(torch.float32)[None, None]
-    return F.max_pool2d(x, 2 * k + 1, stride=1, padding=k)[0, 0] > 0.5
+    x = img.to(torch.float32).reshape(-1, 1, *img.shape[-2:])
+    out = F.max_pool2d(x, 2 * k + 1, stride=1, padding=k) > 0.5
+    return out.reshape(img.shape)
 
 
 def annulus_mask(base: torch.Tensor, inner_px: int, outer_px: int) -> torch.Tensor:

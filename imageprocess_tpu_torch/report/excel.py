@@ -1,13 +1,14 @@
-"""The intensity and FRET reports without pandas.
+"""The intensity, FRET and rim-FRET reports without pandas.
 
-Port of ``imageprocess_tpu/report/excel.py::save_intensity_excel`` and
-``save_fret_excel``: the same ``fluor_intensity_perROI.{xlsx,csv}`` and
-``fret_ratio_perROI.{xlsx,csv}`` files, columns, column order, derived
+Port of ``imageprocess_tpu/report/excel.py::save_intensity_excel``,
+``save_fret_excel`` and ``save_nesprin2_excel``: the same
+``fluor_intensity_perROI.{xlsx,csv}``, ``fret_ratio_perROI.{xlsx,csv}`` and
+``nesprin2_fret_perROI.{xlsx,csv}`` files, columns, column order, derived
 columns (``stage_idx``, ``time_idx``, ``roi_lab``, ``roi_id``) and sheets,
 written with ``xlsxlite.write_xlsx`` and the stdlib ``csv`` module.
 Cells are formatted as ``DataFrame.to_csv`` formats them: missing values and
 NaN as empty fields, floats by their shortest repr, and the ints of a
-column that also has missing values as floats.
+numeric column that also has missing values or floats as floats.
 """
 
 from __future__ import annotations
@@ -26,6 +27,11 @@ BASE_COLS = ("stage", "time", "roi", "area_px",
 FRET_COLS = ("stage", "time", "roi", "area_px", "ratio_mean", "ratio_median",
              "ratio_std", "ratio_p5", "ratio_p95", "donor_mean", "donor_median",
              "yfret_mean", "yfret_median", "eps", "p", "ratio_mode", "bg_mode")
+N2_COLS = ("stage", "time", "roi", "area_px", "ratio_mode",
+           "ratio_mean", "ratio_median", "ratio_std", "ratio_p5", "ratio_p95",
+           "ratio_FoverD_mean", "ratio_DoverF_mean", "donor_mean", "fret_mean",
+           "eps", "p", "donor_p", "fret_p", "bg_scope", "bg_mode", "clip_neg",
+           "sat_filter_on", "sat_threshold", "clip_ratio_on", "clip_ratio_max")
 _CH_MEAN = re.compile(r"ch(\d+)_mean")
 
 
@@ -63,8 +69,9 @@ def _csv_cells(columns: List[str], table: List[list]) -> List[list]:
     as_float = set()
     for j in range(len(columns)):
         vals = [row[j] for row in table]
-        if any(_missing(v) for v in vals) and all(
-                _missing(v) or (isinstance(v, int) and not isinstance(v, bool))
+        if any(_missing(v) or isinstance(v, float) for v in vals) and all(
+                _missing(v) or (isinstance(v, (int, float))
+                                and not isinstance(v, bool))
                 for v in vals):
             as_float.add(j)
     out = []
@@ -167,3 +174,36 @@ def save_fret_excel(rows_all: List[dict], xls_dir: str, timelapse: bool) -> None
         "ratio_median_matrix": _pivot(columns, table, "ratio_median"),
     })
     _write_csv(os.path.join(xls_dir, "fret_ratio_perROI.csv"), columns, table)
+
+
+def nesprin2_table(rows_all: List[dict], timelapse: bool) -> Tuple[List[str], List[list]]:
+    """(columns, rows) of the rim-FRET per-ROI table: the reference's
+    column subset in its order, then ``stage_idx``, ``time_idx`` and
+    ``roi_lab``."""
+    if not rows_all:
+        return [], []
+    present = set().union(*rows_all)
+    cols = [c for c in N2_COLS if c in present]
+    table = []
+    for r in rows_all:
+        stage_idx = _int_of(r"S(\d+)", r["stage"])
+        time_idx = _int_of(r"t(\d+)", r["time"]) if timelapse else 0
+        table.append([r.get(c) for c in cols] + [
+            stage_idx, time_idx, f"s{stage_idx}c{r['roi']}"])
+    return cols + ["stage_idx", "time_idx", "roi_lab"], table
+
+
+def save_nesprin2_excel(rows_all: List[dict], xls_dir: str, timelapse: bool) -> None:
+    """``nesprin2_fret_perROI.{csv,xlsx}`` with the reference's column
+    subset/order and the ratio mean/median time x roi matrices
+    (the Nesprin2 FRET script, :1287-1326)."""
+    columns, table = nesprin2_table(rows_all, timelapse)
+    if not table:
+        return
+    os.makedirs(xls_dir, exist_ok=True)
+    _write_csv(os.path.join(xls_dir, "nesprin2_fret_perROI.csv"), columns, table)
+    xlsxlite.write_xlsx(os.path.join(xls_dir, "nesprin2_fret_perROI.xlsx"), {
+        "per_ROI": [columns] + [list(row) for row in table],
+        "ratio_mean_matrix": _pivot(columns, table, "ratio_mean"),
+        "ratio_median_matrix": _pivot(columns, table, "ratio_median"),
+    })

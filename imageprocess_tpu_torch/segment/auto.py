@@ -18,10 +18,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from .. import native
 from ..core import i18n, naming
 from ..morphology import contours
-from ..core import roiio
+from ..core import roiio, tiffio
 from ..device import resolve_device
 from ..morphology.binary import (binary_closing_skimage, binary_dilation,
                                  binary_erosion, disk)
@@ -187,12 +186,10 @@ def _cellpose_segment(img: np.ndarray, cfg: AutoSegConfig) -> List[np.ndarray]:
 
 
 def _read_frame(path: str) -> np.ndarray:
-    """First page of a TIFF as a 2-D array (channel 0 of a multi-sample
-    page), through the native decoder."""
-    img = native.decode_tiff(path)
-    if img is None:
-        raise ValueError(f"the native TIFF decoder could not read {path}")
-    return img[..., 0] if img.ndim == 3 else img
+    """First page of a TIFF as a 2-D float32 array (channel 0 of a
+    multi-sample page): the native decoder, PIL for a file it does not
+    take."""
+    return tiffio.read_2d(path)
 
 
 def run_auto_drawer(

@@ -80,6 +80,31 @@ def test_naming_discovery_matches_jax(tmp_path):
                 jnaming.build_keymap(want, timelapse, g)
 
 
+@pytest.mark.parametrize("timelapse", [False, True])
+def test_naming_pairs_by_channel_match_jax(tmp_path, timelapse):
+    names = ["S01_1.TIF", "S01_2.TIF", "S02_1.TIF", "S03_2.TIF", "S10_t02_1.TIF",
+             "S10_t02_2.TIF", "S10_t01_1.TIF", "S10_t01-c2.TIF", "S2_ch1.tif",
+             "S2_ch2.tif", "plain.TIF"]
+    files = [str(tmp_path / n) for n in names]
+    for g in GRAMMARS:
+        tg = tnaming.ChannelGrammar(g.value)
+        for d, a in ((1, 2), (2, 1), (1, 3)):
+            got = tnaming.build_pairs_by_channel(files, timelapse, d, a, tg)
+            want = jnaming.build_pairs_by_channel(files, timelapse, d, a, g)
+            assert got == want
+    assert len(tnaming.build_pairs_by_channel(files, timelapse, 1, 2)[0]) >= 2
+
+
+@pytest.mark.parametrize("name", NAMES + ["S01-c2.TIF", "a/b/S01_ch3.tif", "plain.TIF",
+                                          "S01_t02_C12.tiff", "cells"])
+def test_naming_swap_channel_matches_jax(name):
+    for ch in (1, 4, 12):
+        assert tnaming.swap_channel_in_name(name, ch) == \
+            jnaming.swap_channel_in_name(name, ch)
+    assert tnaming.swap_channel_in_name("x/S01-c2.TIF", 4) == os.path.join("x", "S01-4.TIF")
+    assert tnaming.swap_channel_in_name("plain.TIF", 3) == "plain_3.TIF"
+
+
 @pytest.mark.parametrize("present", ["none", "standard", "legacy", "png"])
 def test_naming_find_roi_basepath_matches_jax(tmp_path, present):
     roi = tmp_path / "roi"
@@ -120,6 +145,48 @@ def test_pad_polygons_matches_jax(max_vertices):
     want = jpolygon.pad_polygons(polys, max_vertices)
     assert got.dtype == want.dtype == np.float32
     np.testing.assert_array_equal(got, want)
+
+
+def _vertex_polys():
+    rng = np.random.default_rng(8)
+    th = np.linspace(0, 2 * np.pi, 17, endpoint=False)
+    return {
+        "unit_square": np.array([[0, 0], [1, 0], [1, 1], [0, 1]], float),
+        "ccw_triangle": np.array([[0, 0], [4, 0], [0, 3]], float),
+        "cw_triangle": np.array([[0, 3], [4, 0], [0, 0]], float),
+        "concave": np.array([[0, 0], [6, 0], [6, 6], [3, 2], [0, 6]], float),
+        "collinear": np.array([[0, 0], [2, 0], [4, 0], [4, 4], [2, 4], [0, 4]], float),
+        "degenerate": np.array([[5.0, 5.0]] * 3),
+        "segment": np.array([[1.0, 1.0], [4.0, 5.0]]),
+        "star": np.stack([(3 + 2 * (np.arange(17) % 2)) * np.cos(th) + 10,
+                          (3 + 2 * (np.arange(17) % 2)) * np.sin(th) + 7], 1),
+        "random": rng.uniform(-20, 80, (23, 2)),
+        "float32": rng.uniform(0, 50, (9, 2)).astype(np.float32),
+        "ints": np.array([[1, 2], [9, 2], [9, 7], [1, 7]], np.int64),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_vertex_polys()))
+def test_polygon_vertex_math_matches_jax(name):
+    """perimeter, shoelace area, centroid, convex hull and bbox: the port's
+    copies equal the JAX package's on closed forms, degenerate rings and
+    random vertices."""
+    poly = _vertex_polys()[name]
+    assert tpolygon.polygon_perimeter(poly) == jpolygon.polygon_perimeter(poly)
+    assert tpolygon.shoelace_area(poly) == jpolygon.shoelace_area(poly)
+    assert tpolygon.polygon_centroid(poly) == jpolygon.polygon_centroid(poly)
+    assert tpolygon.polygon_bbox(poly) == jpolygon.polygon_bbox(poly)
+    got, want = tpolygon.convex_hull(poly), jpolygon.convex_hull(poly)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+    if name == "unit_square":
+        assert tpolygon.polygon_perimeter(poly) == 4.0
+        assert tpolygon.shoelace_area(poly) == 1.0
+        assert tpolygon.polygon_centroid(poly) == (0.5, 0.5)
+        assert tpolygon.polygon_bbox(poly) == (0, 0, 2, 2)
+    if name == "collinear":
+        assert len(got) == 4
+    if name == "degenerate":
+        assert tpolygon.polygon_centroid(poly) == (5.0, 5.0) and len(got) == 1
 
 # ------------------------------------------------------------------ xlsxlite
 

@@ -127,6 +127,65 @@ def test_square_dilation_bit_equal(name, k):
     _eq(tbin.square_dilation(_t(fg), k), jbin.square_dilation(jnp.asarray(fg), k))
 
 
+@pytest.mark.parametrize("k", [0, 2, 8])
+def test_square_dilation_takes_leading_dimensions(k):
+    """A stack of per-ROI tile masks (N, T, T), and a (2, N, T, T) batch of
+    them: each mask dilated on its own, as JAX's under ``vmap``."""
+    import jax
+
+    rng = np.random.default_rng(5)
+    stack = rng.random((5, 40, 40)) > 0.97
+    stack[3] = False
+    want = np.asarray(jax.vmap(lambda m: jbin.square_dilation(m, k))(jnp.asarray(stack)))
+    got = tbin.square_dilation(_t(stack), k)
+    assert got.dtype == torch.bool
+    _eq(got, want)
+    _eq(tbin.square_dilation(_t(np.stack([stack, stack[::-1]])), k),
+        np.stack([want, want[::-1]]))
+    for i in range(len(stack)):
+        _eq(tbin.square_dilation(_t(stack[i]), k), want[i])
+        assert np.array_equal(want[i], ndi.binary_dilation(
+            stack[i], np.ones((2 * k + 1, 2 * k + 1), bool)) if k else stack[i])
+
+
+def _edt_masks():
+    rng = np.random.default_rng(9)
+    blobs = ndi.binary_opening(rng.random((60, 83)) > 0.35)
+    blobs[:12, :20] = True          # touches two borders
+    blobs[-5:, :] = True            # a full-width band on the bottom border
+    two = np.zeros((60, 83), bool)
+    two[10:40, 10:40] = True
+    two[10:40, 40:70] = True        # two touching squares: one union
+    return {"blobs": blobs, "touching": two, "empty": np.zeros((9, 7), bool),
+            "full": np.ones((9, 7), bool), "one_row": np.ones((1, 30), bool)}
+
+
+@pytest.mark.parametrize("r", [1, 4, 10])
+@pytest.mark.parametrize("name", sorted(_edt_masks()))
+def test_clamped_edt_and_rim_bit_equal(name, r):
+    """The radius-clamped squared EDT and the rim mask: bit-equal to the
+    JAX functions, and inside r equal to scipy's EDT squared."""
+    from imageprocess_tpu.morphology import edt as jedt
+    from imageprocess_tpu_torch.morphology import edt as tedt
+
+    fg = _edt_masks()[name]
+    got = tedt.clamped_sq_edt(_t(fg), r)
+    want = np.asarray(jedt.clamped_sq_edt(jnp.asarray(fg), r))
+    assert got.dtype == torch.float32 and np.array_equal(got.numpy(), want)
+    d2 = ndi.distance_transform_edt(fg) ** 2 if fg.any() and not fg.all() else None
+    if d2 is not None:
+        inside = d2 <= r * r + 1e-9
+        assert np.array_equal(np.round(d2[inside]), got.numpy()[inside])
+        assert (got.numpy()[~inside] > r * r).all()
+    rim = tedt.rim_mask(_t(fg), r)
+    assert rim.dtype == torch.bool
+    _eq(rim, jedt.rim_mask(jnp.asarray(fg), r))
+    if d2 is not None:
+        dist = ndi.distance_transform_edt(fg)
+        assert np.array_equal(rim.numpy(), (dist > 0) & (dist <= r))
+    _eq(tedt.rim_mask(_t(fg), 0), fg)
+
+
 @pytest.mark.parametrize("inner,outer", [(2, 5), (0, 3), (4, 2)])
 def test_annulus_mask_bit_equal(inner, outer):
     fg = MASKS["blobs1_sparse"]

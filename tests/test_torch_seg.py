@@ -316,6 +316,46 @@ def test_run_auto_drawer_matches_jax(tmp_path):
         assert len(jp) >= 3 and m["recall"] >= 0.95 and m["mean_iou"] >= 0.95, m
 
 
+@pytest.mark.parametrize("kind", ["int32", "jpeg8"])
+def test_run_auto_drawer_reads_what_only_pil_decodes(tmp_path, kind):
+    """A 32-bit integer TIFF (PIL mode "I") and a JPEG-compressed 8-bit
+    TIFF: the native decoder takes neither, the frame comes through PIL as
+    in the JAX package, and the threshold backend writes the same
+    S01.json."""
+    import json
+
+    from PIL import Image
+
+    from imageprocess_tpu.segment import auto as jauto
+    from imageprocess_tpu_torch import native as tnative
+
+    img = _blob_image(2)
+    path = str(tmp_path / "S01_1.TIF")
+    if kind == "int32":
+        Image.fromarray(np.round(img).astype(np.int32), mode="I").save(path, format="TIFF")
+    else:
+        try:
+            Image.fromarray(np.clip(img / 10, 0, 255).astype(np.uint8)).save(
+                path, format="TIFF", compression="jpeg")
+        except (OSError, KeyError, ValueError) as e:
+            pytest.skip(f"this PIL cannot write a JPEG-compressed TIFF: {e}")
+    assert tnative.decode_tiff(path) is None
+    frame = tauto._read_frame(path)
+    assert frame.dtype == np.float32 and frame.shape == img.shape
+    out = {}
+    for name, mod, kw in (("jax", jauto, {}), ("port", tauto, {"device": "cpu"})):
+        logs = []
+        cfg = mod.AutoSegConfig(backend="threshold", thr_mode="mean_std", thr_k=1.0,
+                                min_size_px=50)
+        written = mod.run_auto_drawer(str(tmp_path), cfg, log=logs.append,
+                                      roi_dir=str(tmp_path / f"roi_{name}"), **kw)
+        assert [os.path.basename(p) for p in written] == ["S01.json"], logs
+        with open(written[0], encoding="utf-8") as f:
+            out[name] = json.load(f)
+    assert len(out["jax"]["rois"]) == 2
+    assert out["port"] == out["jax"]
+
+
 @pytest.mark.cuda
 def test_cuda_segmentation_matches_cpu(golden_port):
     """On a card: the post-process fed the CPU's network output gives the
