@@ -16,7 +16,11 @@ as donor/acceptor), the serial runners ``run_intensity`` (the CLI's
 default intensity path) and ``run_fret``, the Nesprin-2 rim-FRET runners
 ``run_nesprin2`` and ``run_nesprin2_batched`` and the morphology workload
 ``run_morphology`` (``imageprocess_tpu_torch.pipelines.nesprin2`` /
-``.morphology``, tables only), and U-Net cell segmentation of
+``.morphology``, tables only), the focal-adhesion runners ``run_fa_batched``
+and ``run_fa_batch`` (``.pipelines.fa``, on an experiment of the same shape
+with bright blobs inside each cell), the TIFF image outputs of
+``run_intensity``, ``run_fret`` and ``run_nesprin2`` (``do_tif=True``), and
+U-Net cell segmentation of
 one 1536 x 2048 frame
 (``imageprocess_tpu_torch.segment.cellseg.segment_frame_unet``, the bundled
 golden checkpoint).  Phases, each of which exits non-zero on failure:
@@ -83,7 +87,28 @@ golden checkpoint).  Phases, each of which exits non-zero on failure:
    ``run_morphology``: 288 rows, the card's equal to the CPU's (areas
    exact and equal to the rasterizer's mask counts, moment metrics within
    1e-5 relative), seconds per run;
-11. segmentation: a deterministic synthcells "fluor" frame (u16), segmented
+11. focal adhesions: an experiment of 16 such frames with ten Gaussian
+   blobs (sigma 2 to 6.5 px) inside each of the 18 circles, 0.223 um/px,
+   alpha 3, closing radius 1 (tile 144): ``run_fa_batched(batch_size=4)``
+   and ``run_fa_batch`` warm and timed; every stage yields rows and two
+   categories occur; batched rows == serial rows, every value; the card's
+   rows of the first and the last stage equal the port's on the CPU (areas,
+   categories and counts exact, floats within 1e-5 relative); S01 against a
+   numpy / scipy replica of the reference loop; the master workbooks read
+   back; one batched run with CUDA-event phases and the CCL round counts,
+   one run of each runner under ``torch.profiler`` (launches per frame, the
+   device's idle share).  The path launches no hand kernel: the JAX
+   package's FA program is XLA;
+12. TIFF outputs: ``do_tif=True`` through ``run_intensity`` (with
+   ``tif_mask_outside``), ``run_fret`` and ``run_nesprin2`` on the first
+   four stages: a checked run (every ``roistats_f32`` launch held to its
+   plain version, the count set to 0 just before and read just after: 4
+   each), a timed tables-only run and a timed run with the TIFFs (the
+   difference per key is the download, the percentiles and the writes);
+   the rows with TIFFs equal the tables-only rows; the files, read back
+   with PIL, equal the same run's on the CPU (float32 within 1e-6, NaN in
+   the same places, previews within one count);
+13. segmentation: a deterministic synthcells "fluor" frame (u16), segmented
    to polygons once warm and three times timed (e2e Mpix/s = H*W / wall
    seconds, frame on the host to polygons), once more with per-phase CUDA
    events and the CCL round counts.  Checks: the card's label map agrees
@@ -91,7 +116,7 @@ golden checkpoint).  Phases, each of which exits non-zero on failure:
    the card's post-process fed the CPU's network output gives the CPU's
    label map exactly, and the generalist checkpoint finds the generator's
    cells (recall >= 0.90, mean IoU >= 0.70 at IoU >= 0.3);
-12. kernel and plain times per chunk: each kernel's time per call through
+14. kernel and plain times per chunk: each kernel's time per call through
    its Python wrapper against the plain version's (CUDA events around 50
    calls, in turns plain / kernel / kernel / plain), the kernel's device
    time by CUDA graph replay (the wrapper's host time left out), the grid
@@ -106,7 +131,7 @@ kernel table (``ms`` per call, ``device_ms`` by graph replay, ``bound_ms``,
 masked moments with six exact order statistics -- and
 ``launches_per_run``; ``roistats_f32`` also ``launches_serial`` and its
 ``serial_shapes`` times, ``launches_nesprin2`` and its ``nesprin2_shapes``
-times), then ``{"ok": true, "device": {...}}``.  Without
+times, ``launches_tiff_outputs``), then ``{"ok": true, "device": {...}}``.  Without
 a card, or outside a checkout, it prints no result and exits non-zero.
 
 ``python3 chip_smoke.py --kernels-only`` stops after phase 3.
@@ -1992,6 +2017,364 @@ def run_seg_path(device: str, reps: int = 3, shape=(H, W)) -> dict:
     }
 
 
+# ------------------------------------------------------------------ focal adhesions
+
+FA_CHANNEL = CHANNELS[0]
+FA_BLOBS = 10                        # per cell
+FA_CATEGORIES = ("OK", "Large", "Small")
+
+
+def fa_config(**kw):
+    from imageprocess_tpu_torch.pipelines.fa import FaConfig
+
+    return FaConfig(channel=FA_CHANNEL, px_size=N2_PX_UM, alpha=3.0, close_radius=1,
+                    **kw)
+
+
+def make_fa_dataset(folder: str, n_stages: int = N_STAGES, shape=(H, W),
+                    seed: int = 7) -> None:
+    """The focal-adhesion experiment: *n_stages* u16 frames of the bench
+    shape (noise around 120) with, inside each of the 18 bench circles,
+    ``FA_BLOBS`` bright Gaussian blobs (sigma 2 to 6.5 px, so that areas
+    fall on both sides of the 30 um2 bound at 0.223 um/px), and the bench
+    ROI JSON of every stage under ``roi/``."""
+    import numpy as np
+
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    h, w = shape
+    os.makedirs(os.path.join(folder, "roi"), exist_ok=True)
+    rng = np.random.default_rng(seed)
+    centers = [(150 + 300 * (i // 8), 150 + 200 * (i % 8)) for i in range(N_ROI)]
+    for s in range(1, n_stages + 1):
+        img = rng.normal(120, 15, (h, w)).astype(np.float32)
+        for cy0, cx0 in centers:
+            for _ in range(FA_BLOBS):
+                rad, th = 45 * math.sqrt(rng.random()), 2 * math.pi * rng.random()
+                cy, cx = cy0 + rad * math.sin(th), cx0 + rad * math.cos(th)
+                sig = rng.uniform(2.0, 6.5)
+                r = int(4 * sig) + 1
+                y0, x0 = int(cy) - r, int(cx) - r
+                yy, xx = np.mgrid[y0:y0 + 2 * r + 1, x0:x0 + 2 * r + 1]
+                img[y0:y0 + 2 * r + 1, x0:x0 + 2 * r + 1] += rng.uniform(1500, 3000) * \
+                    np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2.0 * sig * sig))
+        img = img.clip(0, 65535).astype(np.uint16)
+        path = os.path.join(folder, f"S{s:02d}_{FA_CHANNEL}.TIF")
+        if Image is not None:
+            Image.fromarray(img).save(path, format="TIFF", compression="tiff_lzw")
+        else:
+            write_tiff16_deflate(path, img)
+        with open(os.path.join(folder, "roi", f"S{s:02d}.json"), "w",
+                  encoding="utf-8") as f:
+            json.dump({"name": f"S{s:02d}", "image_shape": {"height": h, "width": w},
+                       "rois": [p.tolist() for p in bench_polys()]}, f)
+
+
+def fa_reference_rows(folder: str, stage: str, cfg) -> list:
+    """numpy / scipy replica of the reference FA batch loop for one stage,
+    in float64: threshold mean + alpha * std of the whole frame, bg the 1st
+    percentile of ``img[::10, ::10]``, and per cell on its bbox grown by 5 px
+    the polygon mask (the port's host rasterizer), remove-small with
+    ``scipy.ndimage.label`` (4-connected), the closing as dilation and
+    border-true erosion, 8-connected labels, area and mean."""
+    import numpy as np
+    import scipy.ndimage as ndi
+
+    from imageprocess_tpu_torch import native
+    from imageprocess_tpu_torch.geom.rasterize import rasterize_polygon_np
+    from imageprocess_tpu_torch.morphology.binary import disk
+
+    img = native.decode_tiff(os.path.join(folder, f"{stage}_{FA_CHANNEL}.TIF")) \
+        .astype(np.float64)
+    thr = img.mean() + cfg.alpha * img.std()
+    bg = float(np.percentile(img[::10, ::10], 1.0))
+    rows = []
+    for i, poly in enumerate(bench_polys()):
+        xs, ys = poly[:, 0], poly[:, 1]
+        x0, x1 = max(0, int(np.floor(xs.min())) - 5), min(W, int(np.ceil(xs.max())) + 5)
+        y0, y1 = max(0, int(np.floor(ys.min())) - 5), min(H, int(np.ceil(ys.max())) + 5)
+        crop = img[y0:y1, x0:x1]
+        bw = (crop > thr) & rasterize_polygon_np(poly - np.array([x0, y0], float),
+                                                 crop.shape)
+        if cfg.min_px > 0:
+            lab4, n4 = ndi.label(bw)
+            sizes = ndi.sum(bw, lab4, np.arange(1, n4 + 1))
+            bw &= ~np.isin(lab4, np.where(sizes < cfg.min_px)[0] + 1)
+        if cfg.close_radius > 0:
+            se = disk(cfg.close_radius)
+            bw = ndi.binary_erosion(ndi.binary_dilation(bw, se), se, border_value=1)
+        lab, n = ndi.label(bw, structure=np.ones((3, 3)))
+        for r in range(1, n + 1):
+            area = float((lab == r).sum())
+            rows.append({"Cell_ID": i + 1, "Area_px": area,
+                         "Category": "Small" if area < cfg.min_px else
+                         "Large" if area > cfg.max_px else "OK",
+                         "Mean_Intensity_Raw": float(crop[lab == r].mean()),
+                         "Background_Level": bg, "Global_Threshold": float(thr)})
+    return rows
+
+
+FA_CLOSE = ("Mean_Intensity_Raw", "Mean_Intensity_Corr", "Int_Density_Raw",
+            "Int_Density_Corr", "Background_Level", "Global_Threshold")
+
+
+def _fa_rows_close(got, want, what: str, keys=None, rtol: float = REL_TOL) -> float:
+    """Two lists of FA rows: as many, cells, areas and categories (and
+    every other column) equal, the columns of ``FA_CLOSE`` within *rtol*
+    relative.  *keys*: the columns to compare (default: *want*'s)."""
+    if len(got) != len(want):
+        raise SmokeError(f"{what}: {len(got)} rows vs {len(want)}")
+    worst = 0.0
+    for a, b in zip(got, want):
+        for k in keys or b:
+            if k in FA_CLOSE:
+                rel = abs(a[k] - b[k]) / max(abs(b[k]), 1e-9)
+                worst = max(worst, rel)
+                if not rel <= rtol:
+                    raise SmokeError(f"{what} cell {b['Cell_ID']} {k}: {a[k]} vs "
+                                     f"{b[k]} ({rel:.2e} rel)")
+            elif a[k] != b[k]:
+                raise SmokeError(f"{what} cell {b['Cell_ID']} {k}: {a[k]!r} vs {b[k]!r}")
+    return worst
+
+
+def run_fa_paths(folder: str, device: str, reps: int = 2) -> dict:
+    """``run_fa_batched(batch_size=4)`` and ``run_fa_batch`` over the FA
+    experiment: a warm and *reps* timed runs each; every stage yields rows
+    and two categories occur; batched rows == serial rows, every value;
+    the card's rows of S01 and the last stage against the port on the CPU
+    (areas, categories and counts equal, the float columns within
+    REL_TOL); S01 against the numpy / scipy replica; the master workbook
+    read back; one batched run with a ``PhaseTimer`` (CCL rounds of both
+    CCLs, the chunk step's device time by CUDA events) and one under
+    ``torch.profiler`` (launches per frame, the device's idle share)."""
+    import torch
+
+    from imageprocess_tpu_torch.core import tiffio
+    from imageprocess_tpu_torch.pipelines import fa
+    from imageprocess_tpu_torch.report.xlsxlite import read_xlsx
+    from imageprocess_tpu_torch.timing import PhaseTimer
+
+    cfg = fa_config()
+    roi_dir = os.path.join(folder, "roi")
+    logs = []
+    workers = max(8, (os.cpu_count() or 1) * 2)
+
+    def batched(timer=None, out="RES_fa_batched"):
+        kw = {} if timer is None else {"timer": timer}
+        return fa.run_fa_batched(folder, roi_dir, os.path.join(folder, out), cfg,
+                                 log=logs.append, batch_size=4,
+                                 prefetch_workers=workers, device=device, **kw)
+
+    def serial():
+        return fa.run_fa_batch(folder, roi_dir, os.path.join(folder, "RES_fa"), cfg,
+                               log=logs.append, device=device)
+
+    mpix = N_STAGES * H * W / 1e6
+    out = {}
+    for kind, one_run in (("batched", batched), ("serial", serial)):
+        t0 = time.perf_counter()
+        res = one_run()
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            again = one_run()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if again != res:
+                raise SmokeError(f"FA {kind}: a timed run gave other rows")
+        out[kind] = {"results": res, "warm_s": warm, "times_s": times,
+                     "steady_s": min(times), "warm_mpix_s": mpix / warm,
+                     "steady_mpix_s": mpix / min(times)}
+    errors = [line for line in logs if "ERROR" in str(line) or "오류" in str(line)
+              or "Error" in str(line)]
+    if errors:
+        raise SmokeError(f"FA runners logged errors: {errors[:3]}")
+    res = out["serial"]["results"]
+    stages = [f"S{s:02d}" for s in range(1, N_STAGES + 1)]
+    if sorted(res) != stages or not all(res[s] for s in stages):
+        raise SmokeError(f"FA: stages with rows {sorted(res)}, want {stages}")
+    if out["batched"]["results"] != res:
+        for s in stages:
+            _fa_rows_close(out["batched"]["results"].get(s, []), res[s],
+                           f"FA batched vs serial {s}", rtol=0.0)
+        raise SmokeError("FA: batched rows != serial rows")
+    cats = {c: sum(r["Category"] == c for rows in res.values() for r in rows)
+            for c in FA_CATEGORIES}
+    if sum(n > 0 for n in cats.values()) < 2:
+        raise SmokeError(f"FA: fewer than two categories occur: {cats}")
+    n_rows = sum(map(len, res.values()))
+    cells = {(s, r["Cell_ID"]) for s, rows in res.items() for r in rows}
+    # the card against the port on the CPU, first and last stage
+    cpu_rel = 0.0
+    for s in (stages[0], stages[-1]):
+        img = tiffio.read_2d(os.path.join(folder, f"{s}_{FA_CHANNEL}.TIF"),
+                             squeeze="smallest_axis")
+        rois = fa._load_rois(os.path.join(roi_dir, f"{s}.json"))
+        fa_rows, thr, bg, _ = fa.analyze_image(img, rois, cfg, device="cpu")
+        cpu_rel = max(cpu_rel, _fa_rows_close(
+            res[s], fa._stage_rows(s, fa_rows, thr, bg, cfg), f"FA card vs CPU {s}"))
+    ref = fa_reference_rows(folder, stages[0], cfg)
+    ref_rel = _fa_rows_close(res[stages[0]], ref, f"FA replica {stages[0]}")
+    # the master workbook, read back
+    for stem in ("RES_fa", "RES_fa_batched"):
+        sheets = read_xlsx(os.path.join(folder, stem, cfg.master_name))
+        if list(sheets) != ["File_Summary", "Cell_Summary", "All_Data"]:
+            raise SmokeError(f"FA {stem}: master sheets {list(sheets)}")
+        fs, cs, ad = (sheets[k] for k in sheets)
+        totals = {row[0]: row[fs[0].index("Total_FA_Count")] for row in fs[1:]}
+        if totals != {s: len(res[s]) for s in stages} or len(ad) != n_rows + 1 \
+                or len(cs) != len(cells) + 1:
+            raise SmokeError(f"FA {stem}: the master workbook's counts differ from "
+                             f"the rows ({totals}, {len(ad) - 1} of {n_rows} rows, "
+                             f"{len(cs) - 1} of {len(cells)} cells)")
+        for s in stages:
+            if not os.path.exists(os.path.join(folder, stem, "individual_results",
+                                               f"{s}_results.csv")):
+                raise SmokeError(f"FA {stem}: {s}_results.csv was not written")
+    timer = PhaseTimer(device)
+    t0 = time.perf_counter()
+    if batched(timer, "RES_fa_traced") != res:
+        raise SmokeError("FA: the traced run gave other rows")
+    traced = time.perf_counter() - t0
+    pr = profile_run(lambda: batched(out="RES_fa_traced"))
+    ps = profile_run(serial)
+    return {"batched": out["batched"], "serial": out["serial"], "rows": n_rows,
+            "cells": len(cells), "categories": cats, "cpu_max_rel": cpu_rel,
+            "replica_max_rel": ref_rel, "replica_rows": len(ref),
+            "phases_ms": timer.times_ms(), "counts": dict(timer.counts),
+            "traced_s": traced, "profile": pr, "profile_serial": ps}
+
+
+# ------------------------------------------------------------------ TIFF outputs
+
+TIFF_STAGES = 4
+
+
+def _tiff_files(root: str) -> list:
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, fs in os.walk(root) for f in fs
+                  if f.endswith((".tif", ".tmp")))
+
+
+def compare_tiffs(card_root: str, cpu_root: str, what: str) -> dict:
+    """The card's TIFF outputs against the CPU run's: the same names, no
+    ``.tmp`` left, float32 frames within 1e-6 (of the pixel plus of the
+    frame's largest magnitude) with NaN in the same places, 16-bit previews
+    within one count."""
+    import numpy as np
+    from PIL import Image
+
+    names = _tiff_files(card_root)
+    if names != _tiff_files(cpu_root) or not names or \
+            any(n.endswith(".tmp") for n in names):
+        raise SmokeError(f"{what}: files {names} vs the CPU run's "
+                         f"{_tiff_files(cpu_root)}")
+    worst32, worst16 = 0.0, 0
+    for name in names:
+        a = np.array(Image.open(os.path.join(card_root, name)))
+        b = np.array(Image.open(os.path.join(cpu_root, name)))
+        if a.shape != (H, W) or a.shape != b.shape or a.dtype != b.dtype:
+            raise SmokeError(f"{what} {name}: {a.dtype}{a.shape} vs {b.dtype}{b.shape}")
+        if a.dtype == np.float32:
+            if not np.array_equal(np.isnan(a), np.isnan(b)):
+                raise SmokeError(f"{what} {name}: NaN in other places")
+            ok = ~np.isnan(b)
+            scale = float(np.abs(b[ok]).max()) if ok.any() else 0.0
+            err = np.abs(a[ok].astype(np.float64) - b[ok])
+            if not (err <= 1e-6 * np.abs(b[ok]) + 1e-6 * scale).all():
+                raise SmokeError(f"{what} {name}: max abs err {err.max()}")
+            worst32 = max(worst32, float((err / max(scale, 1e-30)).max()))
+        elif a.dtype == np.uint16:
+            d = int(np.abs(a.astype(np.int64) - b.astype(np.int64)).max())
+            worst16 = max(worst16, d)
+            if d > 1:
+                raise SmokeError(f"{what} {name}: preview differs by {d} counts")
+        else:
+            raise SmokeError(f"{what} {name}: dtype {a.dtype}")
+    return {"files": len(names), "max_err32_of_scale": worst32, "max_err16": worst16}
+
+
+def run_tiff_outputs(data: str, device: str) -> dict:
+    """``do_tif=True`` through ``run_intensity``, ``run_fret`` and
+    ``run_nesprin2`` on the first ``TIFF_STAGES`` stages of the smoke
+    dataset: a checked run with the TIFFs (every ``roistats_f32`` launch
+    held to its plain version, the count set to 0 just before and read just
+    after), a timed tables-only run and a timed run with the TIFFs (their
+    difference per key is what download, percentiles and writes cost); the
+    rows with the TIFFs equal the tables-only rows; the files against the
+    same run on the CPU."""
+    import torch
+
+    from imageprocess_tpu_torch.ops import roi_stats_kernel as rsk
+    from imageprocess_tpu_torch.pipelines import fret, intensity, nesprin2
+
+    folder = os.path.join(data, "tiff_outputs")
+    os.makedirs(os.path.join(folder, "roi"), exist_ok=True)
+    for s in range(1, TIFF_STAGES + 1):
+        for name in [f"S{s:02d}_{ch}.TIF" for ch in CHANNELS] + \
+                [os.path.join("roi", f"S{s:02d}.json")]:
+            shutil.copy(os.path.join(data, name), os.path.join(folder, name))
+    workers = max(8, (os.cpu_count() or 1) * 2)
+    runners = {
+        "run_intensity": (lambda cfg_kw, out, dev: intensity.run_intensity(
+            folder, intensity.IntensityConfig(
+                channels=CHANNELS, channel_colors={2: "Green", 3: "Red"}, do_xls=False,
+                **cfg_kw),
+            out_root=out, log=lambda *_: None, prefetch_workers=workers, device=dev),
+            dict(tif_mask_outside=True)),
+        "run_fret": (lambda cfg_kw, out, dev: fret.run_fret(
+            folder, fret.FretConfig(donor_ch=CHANNELS[0], acceptor_ch=CHANNELS[1],
+                                    do_xls=False, **cfg_kw),
+            out_root=out, log=lambda *_: None, prefetch_workers=workers, device=dev),
+            {}),
+        "run_nesprin2": (lambda cfg_kw, out, dev: nesprin2.run_nesprin2(
+            folder, n2_config("annulus off", do_xls=False, **cfg_kw), out_root=out,
+            log=lambda *_: None, device=dev), {}),
+    }
+    res = {}
+    for name, (run, extra) in runners.items():
+        card_root = os.path.join(folder, f"RES_{name}_card")
+        rsk.reset_launches()
+        with CheckedRoiRows(f"{name} do_tif") as chk:
+            rows = run(dict(do_tif=True, **extra), card_root, device)
+        torch.cuda.synchronize()
+        launches = rsk.launches["roistats_f32"]
+        if launches != TIFF_STAGES or len(chk.errs) != TIFF_STAGES:
+            raise SmokeError(f"{name} do_tif: {launches} roistats_f32 launches, "
+                             f"{len(chk.errs)} checked, want {TIFF_STAGES}")
+        t0 = time.perf_counter()
+        tables = run({}, os.path.join(folder, f"RES_{name}_tables"), device)
+        torch.cuda.synchronize()
+        t_tables = time.perf_counter() - t0
+        if _tiff_files(os.path.join(folder, f"RES_{name}_tables")):
+            raise SmokeError(f"{name}: a tables-only run wrote TIFFs")
+        shutil.rmtree(card_root)
+        t0 = time.perf_counter()
+        again = run(dict(do_tif=True, **extra), card_root, device)
+        torch.cuda.synchronize()
+        t_tif = time.perf_counter() - t0
+        _rows_equal(rows, tables, f"{name} do_tif vs tables-only", (),
+                    TIFF_STAGES * N_ROI)
+        _rows_equal(again, tables, f"{name} do_tif (timed) vs tables-only", (),
+                    TIFF_STAGES * N_ROI)
+        cpu_root = os.path.join(folder, f"RES_{name}_cpu")
+        t0 = time.perf_counter()
+        run(dict(do_tif=True, **extra), cpu_root, "cpu")
+        cpu_s = time.perf_counter() - t0
+        res[name] = {"launches": launches, "tables_s": t_tables, "tif_s": t_tif,
+                     "extra_s_per_key": (t_tif - t_tables) / TIFF_STAGES,
+                     "cpu_s": cpu_s, **chk.worst(),
+                     **compare_tiffs(card_root, cpu_root, f"{name} TIFFs")}
+    shutil.rmtree(folder, ignore_errors=True)
+    return res
+
+
+
 def build_kernels() -> None:
     """Build every kernel, one nvcc each, all started together."""
     from imageprocess_tpu_torch.kernels import build
@@ -2023,6 +2406,10 @@ def main(argv) -> int:
         return 2
     sys.path.insert(0, root)
     t_start = time.perf_counter()
+
+    def stamp(phase: str) -> None:
+        print(f"[{time.perf_counter() - t_start:6.1f} s] {phase} done")
+
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(card)
@@ -2046,6 +2433,7 @@ def main(argv) -> int:
           f"every variant) equal their plain versions, "
           f"max_abs_err={worst_r['max_abs_err']} "
           f"max_rel_err_moments={worst_r['max_rel_err_moments']}")
+    stamp("build and kernel checks")
     if kernels_only:
         print(json.dumps({"kernels_only": True}))
         return 0
@@ -2082,6 +2470,7 @@ def main(argv) -> int:
     print(f"FRET e2e on {card}: warm {fres['warm_mpix_s']:.2f} Mpix/s "
           f"({fres['warm_s']:.3f} s), steady {fres['steady_mpix_s']:.2f} Mpix/s "
           f"(best of {[round(x, 4) for x in fres['times_s']]} s)")
+    stamp("batched intensity and FRET")
     n = check_serial_path(os.path.join(data, "serial"))
     print(f"serial-path check ok: {n} rows (one key of another frame shape) "
           "equal on the card and on the CPU")
@@ -2104,8 +2493,10 @@ def main(argv) -> int:
         pr = sr["profile"]
         print(f"serial {runner} under torch.profiler on {card}: one run "
               f"{pr['wall_s']:.4f} s, device busy {pr['device_ms']:.3f} ms over "
-              f"{pr['events']} kernels and copies (idle {100 * pr['idle_share']:.1f} "
-              f"% of the run); largest: {pr['top']}")
+              f"{pr['events']} kernels and copies ({pr['events'] / N_STAGES:.0f} per "
+              f"key, tables only; idle {100 * pr['idle_share']:.1f} % of the run); "
+              f"largest: {pr['top']}")
+    stamp("serial intensity and FRET")
     vres = check_variant_paths(os.path.join(data, "variants"))
     print(f"variant paths ok: {vres['configs']} bg_mode x bg_scope configs of "
           f"run_intensity (PNG mask, whole-frame ROI 0, a {BIG_ROI}-px ROI, a "
@@ -2129,6 +2520,7 @@ def main(argv) -> int:
               f"{H}x{W} frame, origin and output of the {tm['valid']} valid of "
               f"{tm['lanes']} lanes, {tm['ops']:.0f} f32 ops) = "
               f"{100 * tm['bound_ms'] / tm['device_ms']:.1f} % of bound on the device")
+    stamp("variants and serial kernel shapes")
     n2, n2_times = {}, {}
     for name, (_, per) in N2_CONFIGS.items():
         nr = n2[name] = run_nesprin2_paths(data, "cuda", name)
@@ -2169,6 +2561,7 @@ def main(argv) -> int:
               f"bound {tm['bound_ms']:.5f} ms by {tm['bound_by']} ({tm['bytes']} B, "
               f"{tm['valid']} valid of {tm['lanes']} lanes, {tm['ops']:.0f} f32 ops) = "
               f"{100 * tm['bound_ms'] / tm['device_ms']:.1f} % of bound on the device")
+    stamp("nesprin2")
     mor = run_morphology_path(data, "cuda")
     mp = mor["profile"]
     print(f"morphology path ok: run_morphology(device='cuda') {mor['rows']} rows; "
@@ -2178,6 +2571,54 @@ def main(argv) -> int:
           f"{[round(x, 4) for x in mor['times_s']]}); under torch.profiler one run "
           f"{mp['wall_s']:.4f} s, device busy {mp['device_ms']:.3f} ms over "
           f"{mp['events']} kernels and copies (idle {100 * mp['idle_share']:.1f} %)")
+    stamp("morphology")
+    fa_dir = os.path.join(data, "fa")
+    t0 = time.perf_counter()
+    make_fa_dataset(fa_dir)
+    print(f"FA dataset: {N_STAGES} stages x {H}x{W} u16, {N_ROI} cells/stage with "
+          f"{FA_BLOBS} blobs each, written in {time.perf_counter() - t0:.1f} s")
+    far = run_fa_paths(fa_dir, "cuda")
+    fb, fs_, fpr, fps = far["batched"], far["serial"], far["profile"], far["profile_serial"]
+    print(f"FA path ok: run_fa_batched(device='cuda', batch_size=4) and "
+          f"run_fa_batch(device='cuda') {far['rows']} rows over {N_STAGES} stages "
+          f"and {far['cells']} cells, categories {far['categories']}; batched rows "
+          f"== serial rows; card rows == CPU rows for S01 and S{N_STAGES:02d} (areas, "
+          f"categories exact, floats max rel err {far['cpu_max_rel']:.3e}); "
+          f"numpy/scipy replica of S01 ({far['replica_rows']} rows) max rel err "
+          f"{far['replica_max_rel']:.3e}; master workbooks read back")
+    for mode, r in (("batched", fb), ("serial", fs_)):
+        print(f"FA {mode} e2e on {card}: warm {r['warm_mpix_s']:.2f} Mpix/s "
+              f"({r['warm_s']:.4f} s), steady {r['steady_mpix_s']:.2f} Mpix/s (best "
+              f"of {[round(x, 4) for x in r['times_s']]} s)")
+    for mode, pr in (("batched", fpr), ("serial", fps)):
+        print(f"FA {mode} under torch.profiler on {card}: one run {pr['wall_s']:.4f} "
+              f"s, device busy {pr['device_ms']:.3f} ms over {pr['events']} kernels "
+              f"and copies ({pr['events'] / N_STAGES:.0f} per frame; idle "
+              f"{100 * pr['idle_share']:.1f} % of the run); largest: {pr['top']}")
+    print(f"FA batched phases on {card} (CUDA events, one run of "
+          f"{far['traced_s']:.4f} s, {N_STAGES // 4} chunks): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in far["phases_ms"].items())
+          + f"; CCL rounds over the chunks: {far['counts']}")
+    print(json.dumps({"fa": {"rows": far["rows"], "categories": far["categories"],
+                             "batched": {k: fb[k] for k in ("warm_s", "times_s",
+                                                            "steady_mpix_s")},
+                             "serial": {k: fs_[k] for k in ("warm_s", "times_s",
+                                                            "steady_mpix_s")},
+                             "phases_ms": far["phases_ms"], "counts": far["counts"],
+                             "profile": fpr, "profile_serial": fps}, "card": card}))
+    stamp("focal adhesions")
+    tif = run_tiff_outputs(data, "cuda")
+    for name, r in tif.items():
+        print(f"TIFF outputs ok: {name}(do_tif=True, device='cuda') on the first "
+              f"{TIFF_STAGES} stages: {r['files']} files equal to the CPU run's "
+              f"(float32 max err {r['max_err32_of_scale']:.3e} of the frame's "
+              f"scale, previews within {r['max_err16']} count), rows equal to the "
+              f"tables-only rows, roistats_f32 launches {r['launches']}, each equal "
+              f"to its plain version (max_abs_err={r['max_abs_err']}); on {card} "
+              f"tables-only {r['tables_s']:.4f} s, with TIFFs {r['tif_s']:.4f} s = "
+              f"{r['extra_s_per_key']:.4f} s more per key (download, percentiles, "
+              f"writes); the CPU run {r['cpu_s']:.2f} s")
+    stamp("TIFF outputs")
     seg = run_seg_path("cuda")
     print(f"seg path ok: {H}x{W} u16 synthcells fluor frame, golden U-Net "
           f"(tile 256, overlap 32, n_iter 120), {seg['polygons']} polygons; "
@@ -2201,6 +2642,7 @@ def main(argv) -> int:
     print(json.dumps({"seg": {k: seg[k] for k in (
         "polygons", "warm_s", "steady_s", "times_s", "steady_mpix_s",
         "phases_ms", "counts", "vs_cpu", "vs_truth")}, "card": card}))
+    stamp("segmentation")
     workers = max(8, (os.cpu_count() or 1) * 2)
     dec = time_host_decode(data, workers)
     print(f"host share alone on this machine ({os.cpu_count()} cores, "
@@ -2246,6 +2688,7 @@ def main(argv) -> int:
                              *(nr[k]["max_abs_err"] for nr in n2.values()
                                for k in ("serial", "batched")),
                              *(tm["max_abs_err"] for tm in n2_times.values()),
+                             *(r["max_abs_err"] for r in tif.values()),
                              *(tm["max_abs_err"] for tm in serial_times.values())),
                          ftiming),
     }
@@ -2258,6 +2701,7 @@ def main(argv) -> int:
         "launches_nesprin2": {f"{mode} ({name})": nr[mode]["launches"]
                               for name, nr in n2.items()
                               for mode in ("serial", "batched")},
+        "launches_tiff_outputs": {name: r["launches"] for name, r in tif.items()},
         "nesprin2_shapes": {label: {k: tm[k] for k in (
             "shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "bytes",
             "valid", "grid", "use_smem", "stage_mask")}

@@ -30,6 +30,12 @@ def load_roi_polygons(json_path: str, min_vertices: int = 3) -> List[np.ndarray]
     return polys
 
 
+def load_roi_bundle(json_path: str) -> dict:
+    """The JSON bundle as it is on disk."""
+    with open(json_path, "r", encoding="utf-8") as f:
+        return json.load(f)
+
+
 def save_roi_bundle(
     json_path: str,
     name: str,

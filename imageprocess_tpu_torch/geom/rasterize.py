@@ -21,6 +21,7 @@ from __future__ import annotations
 import enum
 from typing import Tuple
 
+import numpy as np
 import torch
 
 
@@ -90,3 +91,52 @@ def rasterize_polygons(
     # pixels x < T toggle: count(x) = #edges with T > x = total - prefix(x)
     count = total - torch.cumsum(hist[..., :W], dim=-1, dtype=torch.int32)
     return (count & 1).to(torch.bool)
+
+
+def rasterize_polygon_np(
+    poly: np.ndarray, shape: Tuple[int, int], rule: EdgeRule = EdgeRule.MPL
+) -> np.ndarray:
+    """Host (numpy, float64) version of the same algorithm for one polygon
+    (V, 2) [x, y] -> (H, W) bool: the full-frame unions and crop masks of
+    the image outputs, and small interactive calls."""
+    H, W = shape
+    v = np.asarray(poly, dtype=np.float64)
+    x0, y0 = v[:, 0], v[:, 1]
+    x1, y1 = np.roll(x0, -1), np.roll(y0, -1)
+    ty = np.arange(H, dtype=np.float64)[:, None]
+
+    if rule is EdgeRule.MPL:
+        up = (y0 > y1) & (y1 < ty) & (ty <= y0)
+        down = (y1 > y0) & (y0 < ty) & (ty <= y1)
+    else:
+        up = (y0 > y1) & (y1 <= ty) & (ty < y0)
+        down = (y1 > y0) & (y0 <= ty) & (ty < y1)
+
+    dy_u = y0 - y1
+    s_u = x1 * dy_u + (ty - y1) * (x0 - x1)
+    dy_d = y1 - y0
+    s_d = x0 * dy_d + (ty - y0) * (x1 - x0)
+
+    def threshold(dy, s, strict):
+        with np.errstate(divide="ignore", invalid="ignore"):
+            est = np.where(dy != 0, s / np.where(dy != 0, dy, 1.0), 0.0)
+        t0 = np.floor(est) + 1 if strict else np.ceil(est)
+        p = (t0 * dy > s) if strict else (t0 * dy >= s)
+        pm = ((t0 - 1) * dy > s) if strict else ((t0 - 1) * dy >= s)
+        return t0 + (~p).astype(np.float64) - pm.astype(np.float64)
+
+    t_up = threshold(dy_u, s_u, strict=False)
+    t_down = threshold(dy_d, s_d, strict=(rule is EdgeRule.MPL))
+
+    toggles = up | down
+    thresh = np.where(up, t_up, t_down)
+    t_idx = np.clip(np.where(toggles, thresh, 0), 0, W).astype(np.int64)
+    hist = np.zeros((H, W + 1), np.int64)
+    np.add.at(
+        hist,
+        (np.repeat(np.arange(H), v.shape[0]), t_idx.ravel()),
+        toggles.ravel().astype(np.int64),
+    )
+    total = hist.sum(axis=1, keepdims=True)
+    count = total - np.cumsum(hist[:, :W], axis=1)
+    return (count % 2).astype(bool)

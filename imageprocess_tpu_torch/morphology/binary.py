@@ -15,7 +15,9 @@ Dilation and erosion count the footprint's True neighbours with one
 single-channel ``F.conv2d`` (a cross-correlation, so the convention holds
 as it is).  The counts are small integers, exact in float32 and far from
 the 0.5 thresholds, so the result is exact whatever algorithm the backend
-picks; the JAX module's run-max decomposition was a TPU workaround.
+picks; the JAX module's run-max decomposition was a TPU workaround.  Every
+function takes one image (H, W) or a stack (..., H, W), where the JAX
+package runs the 2-D function under ``vmap``.
 """
 
 from __future__ import annotations
@@ -34,8 +36,9 @@ def disk(radius: int) -> np.ndarray:
 
 def _count(img: torch.Tensor, se: np.ndarray, border: bool,
            dilate: bool) -> torch.Tensor:
-    """#True pixels under the footprint at each pixel, out-of-image pixels
-    counting as *border*.  The footprint's anchor is the JAX module's: row
+    """#True pixels under the footprint at each pixel of (..., H, W) (every
+    leading index is an image of its own), out-of-image pixels counting as
+    *border*.  The footprint's anchor is the JAX module's: row
     ``n // 2`` for its dilation, ``(n - 1) // 2`` (XLA's SAME padding) for
     its erosion; the two differ only for even-sized footprints."""
     se = np.asarray(se, bool)
@@ -43,11 +46,11 @@ def _count(img: torch.Tensor, se: np.ndarray, border: bool,
         ry, rx = se.shape[0] // 2, se.shape[1] // 2
     else:
         ry, rx = (se.shape[0] - 1) // 2, (se.shape[1] - 1) // 2
-    x = img.to(torch.float32)[None, None]
+    x = img.to(torch.float32).reshape(-1, 1, *img.shape[-2:])
     x = F.pad(x, (rx, se.shape[1] - 1 - rx, ry, se.shape[0] - 1 - ry),
               value=float(border))
     k = torch.from_numpy(se.astype(np.float32)).to(img.device)[None, None]
-    return F.conv2d(x, k)[0, 0]
+    return F.conv2d(x, k).reshape(img.shape)
 
 
 def binary_dilation(img: torch.Tensor, se: np.ndarray) -> torch.Tensor:

@@ -19,7 +19,10 @@ file for frames it does not take) and loads the ROI polygons;
   masks (``ops.roistats.roi_stats_full``, the same kernel).
 
 Only the statistics, areas and the three scalars come back; a pair with no
-ROI file logs ``fret_roi_missing`` and gives no rows.
+ROI file logs ``fret_roi_missing`` and gives no rows.  With ``do_tif`` the
+ratio frame and the ROI union also come back (page-locked staging on a
+card, and only then) and ``report.render.save_fret_images`` writes the
+RAT / RAT_ROI_masked TIFFs, for a pair without ROIs too.
 
 The batched runner (``run_fret_batched``), per chunk of pairs:
 
@@ -42,9 +45,9 @@ The batched runner (``run_fret_batched``), per chunk of pairs:
 Pairs the batch cannot take (another frame shape, non-u16 frames, no ROI
 file, an ROI that needs the full frame) run ``process_pair`` in key order;
 a config the batch does not cover (``bg_scope != "full"``, a ``bg_mode``
-other than ``percentile``/``none``) runs ``run_fret`` throughout.  The
-TIF/PNG image outputs are not ported: both runners raise
-``NotImplementedError`` for them before they read a file.
+other than ``percentile``/``none``, ``do_tif``) runs ``run_fret``
+throughout.  ``do_png`` raises ``NotImplementedError`` before a file is
+read.
 """
 
 from __future__ import annotations
@@ -71,9 +74,8 @@ from ..ops.roistats import (
 )
 from ..ops.stats import STAT_FIELDS
 from ..parallel import runner
-from .intensity import (
-    PinnedPool, _bucket, _pack_key, refuse_image_outputs, to_device,
-)
+from ..report.render import refuse_image_outputs, save_fret_images
+from .intensity import PinnedPool, _bucket, _pack_key, frames_on_host, to_device
 
 t = i18n.t
 ChannelGrammar = naming.ChannelGrammar
@@ -328,28 +330,44 @@ def _host_fret_scalars(D: np.ndarray, A: np.ndarray, cfg: FretConfig,
     return float(bgd), float(bga), float(max(cfg.eps_abs, eps_q))
 
 
+def fret_dirs(out_root: str) -> Dict[str, str]:
+    """The folders of the FRET image outputs under *out_root*."""
+    return {
+        "RAT32": os.path.join(out_root, "RAT", "32bit"),
+        "RAT16": os.path.join(out_root, "RAT", "16bit"),
+        "RROI32": os.path.join(out_root, "RAT_ROI_masked", "32bit"),
+        "RROI16": os.path.join(out_root, "RAT_ROI_masked", "16bit"),
+    }
+
+
 def process_pair(key, dpath, apath, roi_dir, cfg: FretConfig, out_dirs=None,
-                 log=print, loaded=None, device="cuda") -> List[dict]:
-    """One (stage, time) pair synchronously -> its per-ROI rows.  Tables
-    only (*out_dirs*, the folders of the image outputs, is not read): one
-    copy brings back the statistics, areas and the three scalars; the
-    ratio and corrected frames stay on the device.  A pair without ROIs
-    logs ``fret_roi_missing`` and gives no rows."""
+                 log=print, loaded=None, device="cuda",
+                 staging: Optional[PinnedPool] = None) -> List[dict]:
+    """One (stage, time) pair synchronously -> its per-ROI rows.  One copy
+    brings back the statistics, areas and the three scalars; the ratio and
+    corrected frames stay on the device unless ``cfg.do_tif`` is on: then
+    the ratio frame and the ROI union come back too (through *staging* on a
+    card) and the TIFFs go to *out_dirs* (:func:`fret_dirs`).  A pair
+    without ROIs logs ``fret_roi_missing`` and gives no rows."""
     dev = resolve_device(device)
     s, t_code = key
     stid = f"{s}_{t_code}" if (cfg.timelapse and t_code is not None) else s
     D, A, polys = loaded if loaded is not None else load_pair(
         key, dpath, apath, roi_dir, cfg)
     if not polys:
+        polys = None
         log(t("fret_roi_missing").format(tag=stid))
-        return []
+        if not cfg.do_tif:
+            return []
     H, W = D.shape
-    n = len(polys)
-    nb, vb = _bucket(n), _bucket(max(len(p) for p in polys), 32)
+    n = len(polys) if polys else 0
+    nb = _bucket(n) if polys else 1
+    vb = _bucket(max(len(p) for p in polys), 32) if polys else 32
     pv = np.zeros((nb, vb, 2), np.float32)
-    pv[:n] = pad_polygons([np.asarray(p, np.float32) for p in polys], vb)
     valid = np.zeros(nb, bool)
-    valid[:n] = True
+    if polys:
+        pv[:n] = pad_polygons([np.asarray(p, np.float32) for p in polys], vb)
+        valid[:n] = True
 
     def up(arr):
         return to_device(arr, dev, None, [])
@@ -360,24 +378,36 @@ def process_pair(key, dpath, apath, roi_dir, cfg: FretConfig, out_dirs=None,
                   clip_neg=cfg.clip_neg, flip=flip)
     scalars = (p1000_of(d_p), p1000_of(a_p), p1000_of(cfg.eps_percentile),
                cfg.eps_abs)
-    tile = choose_tile(polys, H, W)
+    tile = choose_tile(polys, H, W) if polys else None
     if tile is not None:
         offs = tile_offsets(polys, H, W, tile)
         lpv, offs_pad, lvalid = pad_local_polys(polys, offs, nb, vb)
-        stats, area, (_, _, eps), *_ = fret_step_tiled(
+        stats, area, (_, _, eps), R_full, _, _, union = fret_step_tiled(
             up(D), up(A), up(pv), up(lpv), up(offs_pad), up(lvalid), *scalars,
             tile=tile, **common)
     else:
-        stats, area, (_, _, eps), *_ = fret_step(
+        stats, area, (_, _, eps), R_full, _, _, union = fret_step(
             up(D), up(A), up(pv), up(valid), *scalars, **common)
     vals = _pack_key(stats, area, eps[None]).cpu().numpy()
     packed = vals[:len(STAT_FIELDS) * 3 * nb].reshape(len(STAT_FIELDS), 3, nb)
     area_px = vals[len(STAT_FIELDS) * 3 * nb:][:nb]
     eps_f = float(vals[-1])
-    return [_fret_row(s, t_code, i,
+    rows = [_fret_row(s, t_code, i,
                       lambda f, c, i=i: packed[STAT_FIELDS.index(f), c, i],
                       area_px[i], eps_f, cfg, d_p, a_p)
             for i in range(n)]
+    if cfg.do_tif:
+        # the megapixel ratio frame leaves the device only for the TIFFs;
+        # the tiled step rasterizes no full-frame union for the tables
+        if not polys:
+            union = None
+        elif union is None:
+            union = rasterize_polygons(up(pv), (H, W)).any(dim=0)
+        with frames_on_host([R_full, union], dev, staging) as (R_np, union_np):
+            save_fret_images(stid=stid, suffix="DoverF" if flip else "FoverD",
+                             R_full=R_np, union=union_np, polys=polys, cfg=cfg,
+                             dirs=out_dirs)
+    return rows
 
 
 def run_fret(
@@ -397,14 +427,17 @@ def run_fret(
     from ..report.excel import save_fret_excel
 
     dev = resolve_device(device)
-    refuse_image_outputs(cfg.do_tif or cfg.do_png)
+    refuse_image_outputs(cfg.do_png)
     out_root = out_root or os.path.join(folder, "RES")
+    dirs = fret_dirs(out_root)
     roi_dir = os.path.join(folder, "roi")
     pairs = build_fret_pairs(folder, cfg)
     if not pairs:
         log(t("fret_no_pairs").format(donor=cfg.donor_ch,
                                       acceptor=cfg.acceptor_ch))
         return []
+    # page-locked buffers only for the frames that the TIFFs bring back
+    staging = PinnedPool() if (dev.type == "cuda" and cfg.do_tif) else None
     loader = runner.PrefetchLoader(
         lambda kv: (kv, load_pair(kv[0], kv[1], kv[2], roi_dir, cfg)),
         pairs, workers=max(1, prefetch_workers))
@@ -419,8 +452,9 @@ def run_fret(
         (key, dpath, apath), loaded = item
         tag = key[0] if key[1] is None else f"{key[0]}_{key[1]}"
         log(t("msg_processing").format(tag=tag))
-        rows_all.extend(process_pair(key, dpath, apath, roi_dir, cfg, None,
-                                     log=log, loaded=loaded, device=dev))
+        rows_all.extend(process_pair(key, dpath, apath, roi_dir, cfg, dirs,
+                                     log=log, loaded=loaded, device=dev,
+                                     staging=staging))
     if cfg.do_xls and rows_all:
         save_fret_excel(rows_all, os.path.join(out_root, "xls"), cfg.timelapse)
         log(t("fret_saved"))
@@ -464,8 +498,9 @@ def run_fret_batched(
     from ..report.excel import save_fret_excel
 
     dev = resolve_device(device)
-    refuse_image_outputs(cfg.do_tif or cfg.do_png)
-    if cfg.bg_scope != "full" or cfg.bg_mode not in ("percentile", "none"):
+    refuse_image_outputs(cfg.do_png)
+    if (cfg.do_tif or cfg.bg_scope != "full"
+            or cfg.bg_mode not in ("percentile", "none")):
         return run_fret(folder, cfg, out_root=out_root, log=log,
                         prefetch_workers=prefetch_workers, cancel=cancel,
                         device=dev)

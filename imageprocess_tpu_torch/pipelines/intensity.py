@@ -41,12 +41,20 @@ The batched runner (``run_intensity_batched``), per chunk of keys:
 Keys the batch program cannot take (another frame shape, non-u16 frames,
 no polygons, an ROI that needs the full frame) run ``process_key`` in key
 order; a ``bg_scope`` other than ``"full"`` runs the serial runner
-throughout.  The TIF/PNG image outputs are not ported: every runner raises
-``NotImplementedError`` for them before it reads a file.
+throughout.
+
+Image outputs: with ``do_tif`` the serial runner copies each key's
+corrected frames to the host (page-locked staging on a card, and only
+then) and ``report.render.save_intensity_images`` writes the float32 TIFFs
+and their 16-bit previews; the batched runner hands such a config to the
+serial runner.  ``do_png`` raises ``NotImplementedError`` before a file is
+read; ``save_raw_crop_tif`` belongs to the PNG crops and writes nothing
+without them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
@@ -66,23 +74,14 @@ from ..ops.roistats import (
     choose_tile, pad_local_polys, roi_stats_full, roi_stats_tiled, tile_offsets,
 )
 from ..ops.stats import STAT_FIELDS
+from ..report.render import refuse_image_outputs
 
 t = i18n.t
 ChannelGrammar = naming.ChannelGrammar
-IMAGE_OUTPUTS = "the image outputs slice (ROADMAP Queue 1 item 14)"
-
-
-def refuse_image_outputs(do_images: bool) -> None:
-    """Raise for a config that asks for TIF/PNG image outputs."""
-    if do_images:
-        raise NotImplementedError(
-            f"TIF/PNG image outputs are not ported yet: {IMAGE_OUTPUTS}")
-
-
 @dataclass
 class IntensityConfig:
     """The JAX package's ``IntensityConfig``, field for field (names and
-    defaults); the PNG option objects stay ``None`` (image outputs are not
+    defaults); the PNG option objects stay ``None`` (PNG outputs are not
     ported)."""
 
     channels: Tuple[int, ...] = (1,)          # chs_to_quant
@@ -240,6 +239,38 @@ def to_device(arr: np.ndarray, dev: torch.device, staging: Optional[PinnedPool],
     return out.view(torch.uint16) if u16 else out
 
 
+def to_host(x: torch.Tensor, staging: Optional[PinnedPool],
+            held: List[torch.Tensor]) -> np.ndarray:
+    """*x* as a host array.  A CUDA tensor is copied, without blocking, into
+    a page-locked buffer of the *staging* pool: the array is valid once the
+    stream is synchronised and until the caller returns the buffers in
+    *held* to the pool.  A CPU tensor is viewed."""
+    if x.device.type == "cpu":
+        return x.numpy()
+    buf = staging.get(tuple(x.shape), x.dtype)
+    buf.copy_(x, non_blocking=True)
+    held.append(buf)
+    return buf.numpy()
+
+
+@contextlib.contextmanager
+def frames_on_host(tensors, dev: torch.device, staging: Optional[PinnedPool]):
+    """The device *tensors* (None entries stay None) as host arrays for the
+    body of the ``with``: one :func:`to_host` copy each, one synchronise,
+    and the page-locked buffers go back to *staging* on exit.  The only way
+    a full frame leaves the device: the image outputs use it, the tables
+    never do."""
+    held: List[torch.Tensor] = []
+    arrays = [None if x is None else to_host(x, staging, held) for x in tensors]
+    if held:
+        torch.cuda.current_stream(dev).synchronize()
+    try:
+        yield arrays
+    finally:
+        for buf in held:
+            staging.put(buf)
+
+
 def _channel_bgs(imgs: torch.Tensor, p1000s, scope, bg_mode: str,
                  bg_stride: int) -> torch.Tensor:
     """(C,) float32 backgrounds of the raw frames (u16 frames keep their
@@ -384,7 +415,8 @@ def finalize_key(pending, cfg: IntensityConfig,
                  staging: Optional[PinnedPool] = None):
     """Wait for a :func:`submit_key` record (one device-to-host copy of its
     statistics, areas and backgrounds) and make its rows.  The corrected
-    frames stay on the device.  Returns (rows, logs, extras)."""
+    frames stay on the device (``extras["imgs_bc_dev"]``).  Returns (rows,
+    logs, extras)."""
     s, t_code = pending["key"]
     stid, chs, n_roi = pending["stid"], pending["chs"], pending["n_roi"]
     C, nb = len(chs), pending["n_bucket"]
@@ -458,10 +490,11 @@ def run_intensity(
     ``"cpu"``."""
     from ..core.runlog import Progress, RunLogger
     from ..parallel.runner import LoadError, PrefetchLoader
+    from ..report import render
     from ..report.excel import save_intensity_excel
 
     dev = resolve_device(device)
-    refuse_image_outputs(cfg.do_tif or cfg.do_png or cfg.save_raw_crop_tif)
+    refuse_image_outputs(cfg.do_png)
     files = naming.list_tifs(folder)
     keymap = naming.build_keymap(files, cfg.timelapse, cfg.grammar)
     keymap = _apply_subset(keymap, cfg, log)
@@ -486,12 +519,17 @@ def run_intensity(
     rows_all: List[dict] = []
 
     def drain(pending):
-        rows, logs, _ = finalize_key(pending, cfg, staging)
+        rows, logs, extras = finalize_key(pending, cfg, staging)
         rows_all.extend(rows)
         for line in logs:
             logger(line)
         if prog is not None:
             prog.step(max(1, len(rows)), label=str(pending["key"][0]))
+        if cfg.do_tif:
+            # the corrected frames leave the device only for the TIFFs
+            with frames_on_host([extras["imgs_bc_dev"]], dev, staging) as (bc,):
+                render.save_intensity_images(dict(extras, imgs_bc=bc), cfg,
+                                             out_root)
 
     try:
         in_flight = None  # one key pipelined: submit k+1, then drain k
@@ -551,8 +589,8 @@ def run_intensity_batched(
     chunks in flight so host decode of chunk k+1 overlaps the device work
     of chunk k.  *device* is ``"cuda"`` (default; raises without a card)
     or ``"cpu"`` (the plain PyTorch version, for tests).  Returns the rows
-    in key order.  A ``bg_scope`` other than ``"full"`` runs
-    :func:`run_intensity`."""
+    in key order.  A ``bg_scope`` other than ``"full"``, or ``do_tif``,
+    runs :func:`run_intensity`."""
     from ..ops.roistats import (
         choose_tile, gather_tiles, pad_local_polys, tile_offsets,
     )
@@ -561,8 +599,9 @@ def run_intensity_batched(
     from ..report.excel import save_intensity_excel
 
     dev = resolve_device(device)
-    refuse_image_outputs(cfg.do_tif or cfg.do_png or cfg.save_raw_crop_tif)
-    if cfg.bg_scope != "full":
+    refuse_image_outputs(cfg.do_png)
+    if cfg.bg_scope != "full" or cfg.do_tif:
+        # the image outputs need the full frames on the host
         log(t("int_images_serial"))
         return run_intensity(folder, cfg, out_root=out_root, log=log,
                              prefetch_workers=prefetch_workers, cancel=cancel,

@@ -31,7 +31,8 @@ from ..geom.polygon import convex_hull, polygon_perimeter, shoelace_area
 from ..geom.rasterize import rasterize_polygons
 from ..ops.roistats import choose_tile, pad_local_polys, tile_offsets
 from ..parallel.runner import LoadError, PrefetchLoader
-from .intensity import _bucket, _device_inputs, refuse_image_outputs, to_device
+from ..report.render import refuse_image_outputs
+from .intensity import _bucket, _device_inputs, to_device
 
 t = i18n.t
 ChannelGrammar = naming.ChannelGrammar

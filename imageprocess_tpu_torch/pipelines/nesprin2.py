@@ -35,8 +35,12 @@ per-ROI statistics:
    for CPU tensors.  An ROI that needs the full frame (``tile=None``) goes
    through the same stage with the frames NaN-padded to one square tile.
 
-Only tables are written: ``do_tif`` / ``do_png`` raise
-``NotImplementedError`` before a file is read, and so does ``mesh=``.
+With ``do_tif`` the serial runner also brings each pair's ratio frame and
+rim mask to the host (page-locked staging on a card, and only then) and
+``report.render.save_nesprin2_images`` writes the full and rim-masked
+float32 TIFFs; the batched runner hands such a config to the serial one.
+``do_png`` raises ``NotImplementedError`` before a file is read, and so
+does ``mesh=``.
 """
 
 from __future__ import annotations
@@ -66,7 +70,8 @@ from ..ops.ratio import clip_ratio_to_nan, ratio_with_eps, spectral_correct
 from ..ops.roistats import choose_tile, pad_local_polys, tile_offsets
 from ..ops.stats import STAT_FIELDS
 from ..parallel import runner
-from .intensity import PinnedPool, _bucket, refuse_image_outputs, to_device
+from ..report.render import refuse_image_outputs, save_nesprin2_images
+from .intensity import PinnedPool, _bucket, frames_on_host, to_device
 
 t = i18n.t
 ChannelGrammar = naming.ChannelGrammar
@@ -473,10 +478,11 @@ def _tile_margin(cfg: Nesprin2Config) -> int:
 def process_pair_nesprin2(key, dpath, apath, roi_dir, cfg: Nesprin2Config,
                           dirs=None, log=print, loaded=None, device="cuda",
                           staging: Optional[PinnedPool] = None) -> List[dict]:
-    """One (stage, time) pair synchronously -> its per-ROI rows.  Tables
-    only (*dirs*, the folders of the image outputs, is not read): one copy
+    """One (stage, time) pair synchronously -> its per-ROI rows: one copy
     brings the flat table array back.  With a *staging* pool the uploads
-    go through page-locked buffers."""
+    go through page-locked buffers.  With ``cfg.do_tif`` the ratio frame
+    and the rim mask come back too and the TIFFs go to *dirs*
+    (:func:`nesprin2_dirs`)."""
     dev = resolve_device(device)
     s, t_code = key
     tag = f"{s}_{t_code}" if (cfg.timelapse and t_code is not None) else s
@@ -522,8 +528,21 @@ def process_pair_nesprin2(key, dpath, apath, roi_dir, cfg: Nesprin2Config,
     cols, eps_arr = unpack_n2_flat(flat, nb)
     flip = cfg.ratio_mode != "FRET/Donor"
     d_p, a_p = _channel_ps(cfg)
+    if cfg.do_tif:
+        # the ratio frame and the rim leave the device only for the TIFFs
+        with frames_on_host([out[8], out[10]], dev, staging) as (R_np, rim_np):
+            save_nesprin2_images(tag, "DoverF" if flip else "FoverD", R_np,
+                                 rim_np, cfg, dirs)
     return [_n2_row(s, t_code, i, lambda f, i=i: cols[f][0, i],
                     float(eps_arr[0]), cfg, flip, d_p, a_p) for i in range(n)]
+
+
+def nesprin2_dirs(out_root: str) -> Dict[str, str]:
+    """The folders of the rim-FRET image outputs under *out_root*."""
+    return {
+        "tif32_full": os.path.join(out_root, "TIF", "ratio32_full"),
+        "tif32_rim": os.path.join(out_root, "TIF", "ratio32_rim"),
+    }
 
 
 def _n2_pairs(folder: str, cfg: Nesprin2Config, log):
@@ -604,10 +623,15 @@ def run_nesprin2_batched(
     from ..report.excel import save_nesprin2_excel
 
     dev = resolve_device(device)
-    refuse_image_outputs(cfg.do_tif or cfg.do_png)
+    refuse_image_outputs(cfg.do_png)
     if mesh is not None:
         raise NotImplementedError(
             f"sharding over a device mesh is not ported yet: {MULTI_DEVICE}")
+    if cfg.do_tif:
+        # the image outputs are written pair by pair from full frames
+        log(t("n2_images_serial"))
+        return run_nesprin2(folder, cfg, out_root=out_root, log=log,
+                            cancel=cancel, device=dev)
     out_root = out_root or os.path.join(folder, "RES")
     roi_dir = os.path.join(folder, "roi")
     pairs = _n2_pairs(folder, cfg, log)
@@ -766,8 +790,9 @@ def run_nesprin2(
     from ..report.excel import save_nesprin2_excel
 
     dev = resolve_device(device)
-    refuse_image_outputs(cfg.do_tif or cfg.do_png)
+    refuse_image_outputs(cfg.do_png)
     out_root = out_root or os.path.join(folder, "RES")
+    dirs = nesprin2_dirs(out_root)
     roi_dir = os.path.join(folder, "roi")
     pairs = _n2_pairs(folder, cfg, log)
     if not pairs:
@@ -790,7 +815,7 @@ def run_nesprin2(
         (key, dpath, apath), loaded = item
         log(t("msg_processing").format(tag=_pair_tag(key)))
         rows_all.extend(
-            process_pair_nesprin2(key, dpath, apath, roi_dir, cfg, None,
+            process_pair_nesprin2(key, dpath, apath, roi_dir, cfg, dirs,
                                   log=log, loaded=loaded, device=dev,
                                   staging=staging)
         )

@@ -282,19 +282,19 @@ def test_step_on_cpu_is_the_plain_version():
                                 {"do_tif": True}, {"bg_mode": "hist-mode"}],
                          ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
 def test_unsupported_configs_raise(exp_folder, tmp_path, kw):
-    """The image outputs are not ported: they raise, naming the ROADMAP
+    """The PNG outputs are not ported: they raise, naming the ROADMAP
     item, before any file is read.  The configs the batch does not cover
-    (bg_scope "roi_union", bg_mode "hist-mode") no longer raise: the
-    batched runner hands them to run_fret, as the JAX runner does, and the
-    rows are the JAX runner's."""
-    if "do_png" not in kw and "do_tif" not in kw:
+    (bg_scope "roi_union", bg_mode "hist-mode", the TIFF outputs) do not
+    raise: the batched runner hands them to run_fret, as the JAX runner
+    does, and the rows are the JAX runner's."""
+    if "do_png" not in kw:
         jrows, trows, _ = _run_both(exp_folder, tmp_path, donor_ch=1,
                                     acceptor_ch=2, do_xls=False, **kw)
         assert len(trows) == 9
         _assert_rows_match(trows, jrows)
         return
     cfg = tfret.FretConfig(**kw)
-    with pytest.raises(NotImplementedError, match="image outputs"):
+    with pytest.raises(NotImplementedError, match="item 14b"):
         tfret.run_fret_batched(str(exp_folder), cfg, out_root=str(tmp_path),
                                device="cpu")
     assert not (tmp_path / "xls").exists()

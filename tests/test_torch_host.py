@@ -432,3 +432,139 @@ def test_native_builds_into_the_port_and_raises_on_failure(tmp_path, monkeypatch
     with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
         tnative._build(str(tmp_path / "libbad.so"))
     assert not os.path.exists(tmp_path / "libbad.so")
+
+
+# ------------------------------------------------------------------ image outputs
+
+def _frame32(seed=0, shape=(37, 53)):
+    rng = np.random.default_rng(seed)
+    img = rng.normal(300.0, 120.0, shape).astype(np.float32)
+    img[3, 4:9] = np.nan
+    img[10, 10] = np.inf
+    return img
+
+
+@pytest.mark.parametrize("writer,cast", [("write_tiff32", np.float32),
+                                         ("write_tiff16", np.uint16),
+                                         ("write_tiff8", np.uint8)])
+def test_tiff_writers_equal_jax(tmp_path, writer, cast):
+    """The same file bytes as the JAX package's writers (PIL infers the
+    mode from the array's dtype), read back to the same pixels, and no
+    ``.tmp`` file left behind."""
+    from imageprocess_tpu.core import tiffio as jtiff
+    from imageprocess_tpu_torch.core import tiffio as ttiff
+
+    img = _frame32()                    # float32 keeps its NaN and inf
+    if cast != np.float32:
+        img = np.abs(np.nan_to_num(img, nan=7.0, posinf=9.0)) % (
+            255 if cast == np.uint8 else 60000)
+    jp, tp = tmp_path / "j" / "a.tif", tmp_path / "t" / "sub" / "a.tif"
+    getattr(jtiff, writer)(str(jp), img)
+    getattr(ttiff, writer)(str(tp), img)
+    assert tp.read_bytes() == jp.read_bytes()
+    assert sorted(os.listdir(tp.parent)) == ["a.tif"]
+    back = ttiff.read_2d(str(tp), dtype=None)
+    assert back.dtype == cast
+    assert np.array_equal(back, img.astype(cast), equal_nan=True)
+
+
+@pytest.mark.parametrize("lo,hi", [(100.0, 500.0), (0.0, 0.0), (-5.0, 1e9)])
+def test_normalize_to_u16_and_auto_minmax_equal_jax(lo, hi):
+    from imageprocess_tpu.core import tiffio as jtiff
+    from imageprocess_tpu.report import render as jrender
+    from imageprocess_tpu_torch.core import tiffio as ttiff
+    from imageprocess_tpu_torch.report import render as trender
+
+    img = np.nan_to_num(_frame32(1), posinf=1e6)
+    got = ttiff.normalize_to_u16(img, lo, hi)
+    assert got.dtype == np.uint16
+    assert np.array_equal(got, jtiff.normalize_to_u16(img, lo, hi))
+    assert got[3, 4] == 0                                  # NaN -> 0
+    for vals in (_frame32(2), np.full(5, 3.0, np.float32), np.array([np.nan])):
+        for p in ((1.0, 99.0), (0.0, 100.0), (5.0, 50.0)):
+            assert trender._auto_minmax_np(vals, *p) == jrender._auto_minmax_np(vals, *p)
+
+
+@pytest.mark.parametrize("shape", [(3, 40, 50), (40, 50, 4), (1, 3, 40, 50),
+                                   (40, 50)])
+def test_squeeze_smallest_axis_and_read_2d_equal_jax(tmp_path, shape):
+    from imageprocess_tpu.core import tiffio as jtiff
+    from imageprocess_tpu_torch.core import tiffio as ttiff
+
+    a = np.arange(np.prod(shape), dtype=np.uint16).reshape(shape)
+    got = ttiff.squeeze_smallest_axis(a)
+    assert got.shape == (40, 50)
+    assert np.array_equal(got, jtiff.squeeze_smallest_axis(a))
+    if a.ndim == 3 and shape[-1] == 4:
+        path = str(tmp_path / "rgba.tif")
+        Image.fromarray(a.astype(np.uint8)).save(path)
+        for squeeze in ("first_channel", "smallest_axis"):
+            for dtype in (None, np.float32):
+                want = jtiff.read_2d(path, dtype=dtype, squeeze=squeeze)
+                got = ttiff.read_2d(path, dtype=dtype, squeeze=squeeze)
+                assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("rule", ["mpl", "pnpoly"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_rasterize_polygon_np_equals_jax(rule, seed):
+    """The host rasterizer: equal to the JAX package's on free float
+    vertices (both float64 numpy), and to the port's device rasterizer on
+    the half-integer lattice."""
+    import torch
+
+    from imageprocess_tpu.geom import rasterize as jrast
+    from imageprocess_tpu_torch.geom import rasterize as trast
+
+    rng = np.random.default_rng(seed)
+    shape = (45, 61)
+    pts = rng.uniform(-4, 64, (9, 2))
+    c = pts.mean(axis=0)
+    pts = pts[np.argsort(np.arctan2(pts[:, 1] - c[1], pts[:, 0] - c[0]))]
+    got = trast.rasterize_polygon_np(pts, shape, trast.EdgeRule(rule))
+    assert got.dtype == bool and got.any()
+    assert np.array_equal(got, jrast.rasterize_polygon_np(pts, shape,
+                                                          jrast.EdgeRule(rule)))
+    lattice = np.round(pts * 2) / 2
+    dev = trast.rasterize_polygons(torch.from_numpy(lattice[None].astype(np.float32)),
+                                   shape, trast.EdgeRule(rule))[0].numpy()
+    assert np.array_equal(trast.rasterize_polygon_np(lattice, shape,
+                                                     trast.EdgeRule(rule)), dev)
+
+
+def test_load_roi_bundle_equals_jax(tmp_path):
+    from imageprocess_tpu.core import roiio as jroi
+    from imageprocess_tpu_torch.core import roiio as troi
+
+    path = str(tmp_path / "S01.json")
+    troi.save_roi_bundle(path, "S01", (40, 50), [np.array([[1, 2], [30, 4], [9, 33.5]])],
+                         view_params={"gamma": 1.5}, generated_by="test")
+    got = troi.load_roi_bundle(path)
+    assert got == jroi.load_roi_bundle(path)
+    assert got["rois"] == [[[1.0, 2.0], [30.0, 4.0], [9.0, 33.5]]]
+    assert got["view_params"] == {"gamma": 1.5}
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_polygon_union_equals_full_frame_masks(seed):
+    """render.polygon_union rasterizes each polygon on its own rows: the
+    same union as OR-ing the JAX package's full-frame host masks, for free
+    float vertices, polygons that leave the frame and one wholly outside."""
+    from imageprocess_tpu.geom import rasterize as jrast
+    from imageprocess_tpu_torch.report import render as trender
+
+    rng = np.random.default_rng(seed)
+    shape = (90, 70)
+    polys = []
+    for _ in range(5):
+        c = rng.uniform(-10, 100, 2)
+        pts = c + rng.uniform(-30, 30, (7, 2))
+        m = pts.mean(axis=0)
+        polys.append(pts[np.argsort(np.arctan2(pts[:, 1] - m[1], pts[:, 0] - m[0]))])
+    polys.append(np.array([[5.0, 200.0], [40.0, 205.0], [20.0, 260.0]]))   # below
+    polys.append(np.array([[5.0, -60.0], [40.0, -55.0], [20.0, -20.5]]))   # above
+    want = np.zeros(shape, bool)
+    for P in polys:
+        want |= jrast.rasterize_polygon_np(P, shape)
+    got = trender.polygon_union(polys, shape)
+    assert got.dtype == bool and got.any() and np.array_equal(got, want)

@@ -299,19 +299,27 @@ def test_decode_then_gather_path_matches_fused(timelapse_folder, tmp_path,
                                 {"do_tif": True}, {"save_raw_crop_tif": True}],
                          ids=lambda kw: next(iter(kw)))
 def test_unsupported_configs_raise(timelapse_folder, tmp_path, kw):
-    """The image outputs are not ported: they raise, naming the ROADMAP
-    item, before any file is read.  A bg_scope other than "full" no longer
-    raises: the batched runner hands the run to run_intensity, as the JAX
-    runner does, and the rows are the JAX runner's."""
-    if "bg_scope" in kw:
+    """The PNG outputs are not ported: they raise, naming the ROADMAP
+    item, before any file is read.  A bg_scope other than "full" and the
+    TIFF outputs do not raise: the batched runner hands the run to
+    run_intensity, as the JAX runner does, and the rows are the JAX
+    runner's.  ``save_raw_crop_tif`` alone (it belongs to the PNG crops)
+    runs the batched path and writes no image."""
+    if "do_png" not in kw:
         jrows, trows, logs = _run_both(timelapse_folder, tmp_path, channels=(1, 2),
                                        timelapse=True, do_xls=False, **kw)
         assert len(trows) == 16
-        assert logs[0] == tint.t("int_images_serial")
+        handed_over = "save_raw_crop_tif" not in kw
+        assert (logs[0] == tint.t("int_images_serial")) == handed_over
         _assert_rows_match(trows, jrows)
+        tiffs = {side: sorted(os.path.relpath(os.path.join(d, f), tmp_path / side)
+                              for d, _, fs in os.walk(tmp_path / side) for f in fs
+                              if f.endswith(".tif")) for side in "tj"}
+        assert tiffs["t"] == tiffs["j"]
+        assert bool(tiffs["t"]) == ("do_tif" in kw)
         return
     cfg = tint.IntensityConfig(channels=(1, 2), timelapse=True, **kw)
-    with pytest.raises(NotImplementedError, match="image outputs"):
+    with pytest.raises(NotImplementedError, match="item 14b"):
         tint.run_intensity_batched(str(timelapse_folder), cfg,
                                    out_root=str(tmp_path), device="cpu")
     assert not (tmp_path / "xls").exists()

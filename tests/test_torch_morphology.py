@@ -243,3 +243,155 @@ def test_label_overflow_flag_and_rounds():
     timer = PhaseTimer("cpu")
     tccl.label(_t(MASKS["spiral"]), 1, timer=timer)
     assert 2 <= timer.counts["rounds"] <= 12
+
+
+# --- stacks: the JAX functions under ``vmap`` -------------------------------
+
+def _stack_of(names):
+    return np.stack([MASKS[n] for n in names])
+
+
+# masks that converge in different numbers of rounds, in one stack
+STACKS = {
+    "mixed": _stack_of(["blobs0", "spiral", "empty", "full", "snake", "noise"]),
+    "blobs": _stack_of(["blobs0", "blobs1_sparse", "blobs2_dense"]),
+    "one": _stack_of(["comb"]),
+}
+
+
+@pytest.mark.parametrize("connectivity", [1, 2])
+@pytest.mark.parametrize("name", sorted(STACKS))
+def test_stacked_label_and_roots_bit_equal(name, connectivity):
+    """A stack of tiles labels each tile on its own: bit-equal to the JAX
+    functions under ``vmap`` and to the port's own 2-D calls, the overflow
+    flag per tile, and a (2, N, H, W) batch of stacks the same."""
+    import jax
+
+    stack = STACKS[name]
+    want = np.asarray(jax.vmap(lambda m: jccl.label_roots(m, connectivity))(
+        jnp.asarray(stack)))
+    got = tccl.label_roots(_t(stack), connectivity)
+    assert got.dtype == torch.int32
+    _eq(got, want)
+    jlab, jover = jax.vmap(lambda m: jccl.label(
+        m, connectivity, max_labels=8, with_overflow=True))(jnp.asarray(stack))
+    lab, over = tccl.label(_t(stack), connectivity, max_labels=8,
+                           with_overflow=True)
+    assert lab.dtype == torch.int32 and over.shape == (len(stack),)
+    _eq(lab, jlab)
+    _eq(over, jover)
+    for i in range(len(stack)):
+        lab_i, over_i = tccl.label(_t(stack[i]), connectivity, max_labels=8,
+                                   with_overflow=True)
+        _eq(lab_i, lab[i])
+        assert bool(over_i) == bool(over[i]) and over_i.dim() == 0
+        _eq(tccl.label_roots(_t(stack[i]), connectivity), got[i])
+    both = np.stack([stack, stack[::-1]])
+    lab2, over2 = tccl.label(_t(both), connectivity, max_labels=8,
+                             with_overflow=True)
+    _eq(lab2, np.stack([np.asarray(jlab), np.asarray(jlab)[::-1]]))
+    assert over2.shape == both.shape[:2]
+
+
+@pytest.mark.parametrize("min_size", [1, 5, 40.5])
+@pytest.mark.parametrize("name", sorted(STACKS))
+def test_stacked_remove_small_and_sizes_bit_equal(name, min_size):
+    """remove-small on a stack, with an int or (as the focal-adhesion chain
+    passes it) a float minimum size, and the per-tile root sizes."""
+    import jax
+
+    stack = STACKS[name]
+
+    def jax_one(m):
+        roots = jccl.label_roots(m, 1)
+        sizes = jccl._root_sizes(roots)
+        keep = sizes[roots.ravel()].reshape(m.shape).astype(jnp.float32) >= min_size
+        return m & keep, sizes
+
+    want, want_sizes = jax.vmap(jax_one)(jnp.asarray(stack))
+    _eq(tccl.remove_small_objects(_t(stack), min_size), want)
+    roots = tccl.label_roots(_t(stack), 1)
+    sizes = tccl._root_sizes(roots)
+    _eq(sizes, want_sizes)
+    _eq(tccl._sizes_at(sizes, roots) >= min_size,
+        np.asarray(want) | ~stack)        # background looks up the sentinel bin
+    for i in range(len(stack)):
+        _eq(tccl.remove_small_objects(_t(stack[i]), min_size), np.asarray(want)[i])
+
+
+@pytest.mark.parametrize("se_name", ["disk1", "disk2", "asym", "even4x2"])
+@pytest.mark.parametrize("name", sorted(STACKS))
+def test_stacked_closing_bit_equal(name, se_name):
+    import jax
+
+    stack, se = STACKS[name], SES[se_name]
+    for fn, jfn in ((tbin.binary_dilation, jbin.binary_dilation),
+                    (tbin.binary_erosion, jbin.binary_erosion),
+                    (tbin.binary_closing_skimage, jbin.binary_closing_skimage)):
+        want = np.asarray(jax.vmap(lambda m: jfn(m, se))(jnp.asarray(stack)))
+        got = fn(_t(stack), se)
+        assert got.dtype == torch.bool
+        _eq(got, want)
+        _eq(fn(_t(stack[-1]), se), want[-1])
+        _eq(fn(_t(np.stack([stack, stack])), se), np.stack([want, want]))
+
+
+@pytest.mark.parametrize("max_labels", [4, 64])
+@pytest.mark.parametrize("name", sorted(STACKS))
+def test_stacked_region_props_match_jax(name, max_labels):
+    """region_props on a stack against the JAX function under ``vmap``:
+    areas, boxes and n_labels bit-equal; the float outputs within one
+    float32 ulp of a float64 numpy reference (the port accumulates in
+    float64 and rounds once) and within 1e-5 relative of JAX's sequential
+    float32 sums, whose own error grows with the region (up to 3072 pixels
+    here; 1e-6 holds for regions of focal-adhesion size, see
+    test_torch_fa.py); labels above max_labels are dropped; stacked ==
+    per-tile."""
+    import jax
+
+    from imageprocess_tpu.morphology import regions as jreg
+    from imageprocess_tpu_torch.morphology import regions as treg
+
+    stack = STACKS[name]
+    rng = np.random.default_rng(11)
+    inten = rng.normal(800.0, 200.0, stack.shape).astype(np.float32)
+    lab = tccl.label(_t(stack), 2)
+    want = jax.vmap(lambda a, b: jreg.region_props(a, b, max_labels=max_labels))(
+        jnp.asarray(lab.numpy()), jnp.asarray(inten))
+    got = treg.region_props(lab, _t(inten), max_labels=max_labels)
+    assert sorted(got) == sorted(want)
+    for k in ("area", "min_r", "min_c", "max_r", "max_c", "n_labels"):
+        assert got[k].dtype == torch.int32, k
+        _eq(got[k], want[k])
+    for k in ("sum", "mean", "centroid_r", "centroid_c"):
+        assert got[k].dtype == torch.float32, k
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   rtol=1e-5, atol=0, err_msg=k)
+    rr, cc = np.indices(stack.shape[1:])
+    for i, l in ((i, l) for i in range(len(stack))
+                 for l in range(1, min(int(lab[i].max()), max_labels) + 1)):
+        m = lab[i].numpy() == l
+        ref = {"sum": inten[i][m].sum(dtype=np.float64)}
+        ref["mean"] = ref["sum"] / m.sum()
+        ref["centroid_r"], ref["centroid_c"] = rr[m].mean(), cc[m].mean()
+        for k, v in ref.items():
+            assert abs(float(got[k][i, l - 1]) - v) <= 1.2e-7 * abs(v), (k, i, l)
+    if max_labels == 4 and name != "one":
+        assert int(lab.max()) > max_labels      # some labels were dropped
+    for i in range(len(stack)):
+        one = treg.region_props(lab[i], _t(inten[i]), max_labels=max_labels)
+        for k, v in one.items():
+            assert torch.equal(v, got[k][i]), k
+
+
+def test_stacked_rounds_count_once_per_stack():
+    """One convergence flag per round for the whole stack: the count is the
+    slowest tile's."""
+    rounds = {}
+    for name in ("blobs0", "spiral"):
+        timer = PhaseTimer("cpu")
+        tccl.label(_t(MASKS[name]), 1, timer=timer)
+        rounds[name] = timer.counts["rounds"]
+    timer = PhaseTimer("cpu")
+    tccl.label(_t(_stack_of(["blobs0", "spiral", "blobs0"])), 1, timer=timer)
+    assert timer.counts["rounds"] == max(rounds.values())

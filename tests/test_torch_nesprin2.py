@@ -518,9 +518,19 @@ def test_no_pairs_and_cancel(n2_ds, tmp_path):
 @pytest.mark.parametrize("runner", ["run_nesprin2", "run_nesprin2_batched"])
 @pytest.mark.parametrize("out", ["do_tif", "do_png"])
 def test_image_outputs_raise_before_reading(tmp_path, runner, out):
+    """PNG outputs raise, naming their ROADMAP item, before a file is read;
+    the TIFF outputs are ported: an empty folder gives no rows."""
     missing = str(tmp_path / "no-such-folder")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        getattr(tn, runner)(missing, tn.Nesprin2Config(**{out: True}), device="cpu")
+
+    def run():
+        return getattr(tn, runner)(missing, tn.Nesprin2Config(**{out: True}),
+                                   log=lambda *_: None, device="cpu")
+
+    if out == "do_tif":
+        assert run() == []
+        return
+    with pytest.raises(NotImplementedError, match="Queue 1 item 14b"):
+        run()
 
 
 def test_mesh_raises_naming_its_roadmap_item(n2_ds):

@@ -1,7 +1,8 @@
 """The port imports torch and never jax: no port source names ``jax`` or
-the ``imageprocess_tpu`` package, none executes a file of that package,
-and importing its main paths pulls in neither jax, flax, PIL, pandas nor
-matplotlib (the card's machine is not promised them)."""
+the ``imageprocess_tpu`` package, nor pandas, matplotlib or h5py (at module
+level or inside a function), none executes a file of that package, and
+importing its main paths pulls in neither jax, flax, PIL, pandas,
+matplotlib nor h5py (the card's machine is not promised them)."""
 
 import ast
 import json
@@ -39,8 +40,8 @@ def _imported(path):
 def test_no_jax_or_reference_package_import(path):
     for name in _imported(path):
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", "flax", "optax", "imageprocess_tpu"), (
-            path, name)
+        assert top not in ("jax", "jaxlib", "flax", "optax", "imageprocess_tpu",
+                           "pandas", "matplotlib", "h5py"), (path, name)
 
 
 def test_main_path_import_pulls_in_no_jax_pil_pandas():
@@ -64,9 +65,13 @@ def test_main_path_import_pulls_in_no_jax_pil_pandas():
         "import imageprocess_tpu_torch.segment.auto\n"
         "import imageprocess_tpu_torch.segment.cellseg\n"
         "import imageprocess_tpu_torch.segment.flows\n"
+        "import imageprocess_tpu_torch.pipelines.fa\n"
+        "import imageprocess_tpu_torch.pipelines.nesprin2\n"
+        "import imageprocess_tpu_torch.morphology.regions\n"
+        "import imageprocess_tpu_torch.report.render\n"
         "import chip_smoke\n"
         "mods = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'PIL', 'pandas', 'matplotlib', "
+        "('jax', 'jaxlib', 'flax', 'PIL', 'pandas', 'matplotlib', 'h5py', "
         "'imageprocess_tpu')]\n"
         "print(json.dumps(mods))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
