@@ -19,11 +19,13 @@ default intensity path) and ``run_fret``, the Nesprin-2 rim-FRET runners
 ``.morphology``, tables only), the focal-adhesion runners ``run_fa_batched``
 and ``run_fa_batch`` (``.pipelines.fa``, on an experiment of the same shape
 with bright blobs inside each cell), the TIFF image outputs of
-``run_intensity``, ``run_fret`` and ``run_nesprin2`` (``do_tif=True``), and
+``run_intensity``, ``run_fret`` and ``run_nesprin2`` (``do_tif=True``),
 U-Net cell segmentation of
 one 1536 x 2048 frame
 (``imageprocess_tpu_torch.segment.cellseg.segment_frame_unet``, the bundled
-golden checkpoint).  Phases, each of which exits non-zero on failure:
+golden checkpoint), ROI refinement (``.segment.drawer.refine_and_save``) and
+the FRET timelapse deck (``.pipelines.fretppt.run_fret_ppt``).  Phases, each
+of which exits non-zero on failure:
 
 1. the card's name and power limit;
 2. build ``kernels/tilestats_u16.cu`` and ``kernels/roistats_f32.cu`` with
@@ -116,7 +118,26 @@ golden checkpoint).  Phases, each of which exits non-zero on failure:
    the card's post-process fed the CPU's network output gives the CPU's
    label map exactly, and the generalist checkpoint finds the generator's
    cells (recall >= 0.90, mean IoU >= 0.70 at IoU >= 0.3);
-14. kernel and plain times per chunk: each kernel's time per call through
+14. refine: 4 synthcells "fluor" frames of 1536 x 2048 u16 (24 cells of
+   radius 20-60, a fixed seed) with one rough polygon per generator
+   instance of >= 150 px (its convex hull scaled 1.3x about its centroid,
+   one-decimal vertices: bbox tiles of 64-256 px); ``refine_and_save`` on
+   the card in percentile mode (p40) over the four frames (the first warm,
+   the next two steady, the last under ``torch.profiler``: launches per
+   polygon, the device's idle share) and in BND mode (k 0.25) over stage 1,
+   each writing the full bundle (JSON, mask TIFF, overlay PNG, ImageJ zip);
+   recall and mean IoU at IoU >= 0.5 against the generator's outlines
+   through ``evalseg.match_instances`` (percentile recall >= 0.9);
+   ``segment_inside_polygon`` in ms per polygon, its phases by CUDA events
+   and its CCL rounds; stage 1 against the port on the CPU, per polygon:
+   percentile thresholds, polygons and whole bundles (JSON, mask and
+   overlay pixels, zip entries) equal; BND thresholds within 1e-5
+   relative, polygons equal unless a pixel lies between the two
+   thresholds and, when every polygon is equal, the whole bundle.  Then the deck:
+   ``run_fret_ppt`` over ratio / BF thumbnails written with PIL, read back
+   with ``read_pptx_summary`` (slides and pictures counted).  The path
+   launches no hand kernel: the JAX package's tile program is XLA;
+15. kernel and plain times per chunk: each kernel's time per call through
    its Python wrapper against the plain version's (CUDA events around 50
    calls, in turns plain / kernel / kernel / plain), the kernel's device
    time by CUDA graph replay (the wrapper's host time left out), the grid
@@ -2374,6 +2395,315 @@ def run_tiff_outputs(data: str, device: str) -> dict:
     return res
 
 
+# ------------------------------------------------------------------ refine and the deck
+
+REFINE_STAGES = 4
+REFINE_CELLS = 24
+REFINE_R = (20.0, 60.0)
+REFINE_MIN_PX = 150        # generator instances below it get no rough polygon
+REFINE_SCALE = 1.3         # the rough polygon: the instance's hull, scaled about its centroid
+# thr_param of each mode, fixed on the CPU on these frames (PERF.md §4): the
+# 40th percentile and mean + 0.25 sigma of the rough polygon's pixels both
+# separate a cell that fills ~1/1.3^2 of its rough polygon from the background
+REFINE_MODES = {"percentile": 40.0, "bnd": 0.25}
+REFINE_MIN_RECALL = 0.9    # percentile mode, at IoU >= 0.5
+DECK = dict(stages=("S01", "S02"), rois=("1", "2"), times=5)
+
+
+def refine_frame(stage: int) -> dict:
+    """Stage *stage*'s synthcells "fluor" frame (u16, 24 cells of radius
+    20-60), the generator's labels without instances below 150 px, their
+    outlines (cv2, as ``synthcells.eval_frame`` draws them) and one rough
+    polygon per instance: its convex hull (of each row's end pixels) scaled
+    1.3x about the instance's pixel centroid, one-decimal vertices clipped to
+    the frame."""
+    import numpy as np
+
+    from imageprocess_tpu_torch.geom.polygon import convex_hull
+    from imageprocess_tpu_torch.models import synthcells
+    from imageprocess_tpu_torch.morphology.contours import masks_to_polygons
+
+    rng = np.random.default_rng(200_000 + stage)
+    img, labels = synthcells.synth_frame(rng, H, W, "fluor", n_cells=REFINE_CELLS,
+                                         r_range=REFINE_R)
+    ids, counts = np.unique(labels[labels > 0], return_counts=True)
+    labels = np.where(np.isin(labels, ids[counts < REFINE_MIN_PX]), 0, labels)
+    ys, xs = np.nonzero(labels)
+    lab = labels[ys, xs]
+    order = np.argsort(lab, kind="stable")   # row-major within each instance
+    ys, xs, lab = ys[order], xs[order], lab[order]
+    rough = []
+    for idx in np.split(np.arange(lab.size), np.flatnonzero(np.diff(lab)) + 1):
+        y, x = ys[idx], xs[idx]
+        first = np.r_[0, np.flatnonzero(np.diff(y)) + 1]
+        last = np.r_[first[1:] - 1, y.size - 1]
+        ends = np.c_[np.r_[x[first], x[last]], np.r_[y[first], y[last]]].astype(float)
+        c = np.array([x.mean(), y.mean()])
+        poly = np.round(c + REFINE_SCALE * (convex_hull(ends) - c), 1)
+        rough.append(np.c_[poly[:, 0].clip(0, W - 1), poly[:, 1].clip(0, H - 1)])
+    return {"img": np.clip(img, 0, 65535).astype(np.uint16), "rough": rough,
+            "truth": masks_to_polygons(labels, min_area=20.0)}
+
+
+def make_refine_dataset(folder: str) -> dict:
+    """``S0k_1.TIF`` frames and their rough ROI JSONs (under ``rough/``),
+    built in threads; returns {tag: refine_frame(k)}."""
+    from imageprocess_tpu_torch.core import roiio, tiffio
+
+    def one(stage):
+        fr = refine_frame(stage)
+        tag = f"S{stage:02d}"
+        tiffio.write_tiff16(os.path.join(folder, f"{tag}_1.TIF"), fr["img"])
+        roiio.save_roi_bundle(os.path.join(folder, "rough", f"{tag}.json"), tag,
+                              fr["img"].shape, fr["rough"])
+        return tag, fr
+
+    os.makedirs(folder, exist_ok=True)
+    with cf.ThreadPoolExecutor(REFINE_STAGES) as pool:
+        return dict(pool.map(one, range(1, REFINE_STAGES + 1)))
+
+
+def refine_run(folder: str, name: str, mode: str, device: str, tags,
+               profile_last: bool = False) -> tuple:
+    """``refine_and_save`` over the frames of *tags* (their rough JSONs
+    copied into a fresh ``roi_<name>/``): (roi dir, per timed frame the wall
+    seconds of [segmentation and JSON, mask, overlay, zip], the profile or
+    None).  A frame's bundle logs one line per artifact, in that order,
+    saved or failed.  With *profile_last* the last frame is refined by a
+    second call under ``torch.profiler`` into the same roi dir (its TIFF
+    copied into ``profiled/``, so that call sees it alone) and is not among
+    the timed frames."""
+    import torch
+
+    from imageprocess_tpu_torch.segment.drawer import RefineConfig, refine_and_save
+
+    def refine(img_dir, want):
+        written = refine_and_save(img_dir, cfg, roi_dir=roi_dir, device=device,
+                                  log=lambda *_: stamps.append(time.perf_counter()))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        if sorted(os.path.basename(p) for p in written) != sorted(f"{t}.json" for t in want) \
+                or len(stamps) != 4 * len(want):
+            raise SmokeError(f"refine {name}: wrote {written}, {len(stamps)} log lines")
+
+    roi_dir = os.path.join(folder, f"roi_{name}")
+    shutil.rmtree(roi_dir, ignore_errors=True)
+    os.makedirs(roi_dir)
+    timed = tags[:-1] if profile_last else tags
+    for tag in timed:
+        shutil.copy(os.path.join(folder, "rough", f"{tag}.json"), roi_dir)
+    cfg = RefineConfig(thr_param=REFINE_MODES[mode], mode=mode)
+    stamps = []
+    t0 = time.perf_counter()
+    refine(folder, timed)
+    marks = [t0] + stamps
+    parts = [[marks[i + 1] - marks[i] for i in range(k, k + 4)]
+             for k in range(0, len(stamps), 4)]
+    prof = None
+    if profile_last:
+        img_dir = os.path.join(folder, "profiled")
+        shutil.rmtree(img_dir, ignore_errors=True)
+        os.makedirs(img_dir)
+        shutil.copy(os.path.join(folder, f"{tags[-1]}_1.TIF"), img_dir)
+        shutil.copy(os.path.join(folder, "rough", f"{tags[-1]}.json"), roi_dir)
+        stamps.clear()
+        prof = profile_run(lambda: refine(img_dir, tags[-1:]))
+    return roi_dir, parts, prof
+
+
+def bundle_files(roi_dir: str, tag: str) -> tuple:
+    """(JSON, mask pixels, overlay pixels, zip entry names and bytes)."""
+    import zipfile
+
+    import numpy as np
+    from PIL import Image
+
+    with open(os.path.join(roi_dir, f"{tag}.json"), encoding="utf-8") as f:
+        js = json.load(f)
+    with Image.open(os.path.join(roi_dir, "mask", f"{tag}_mask.tif")) as im:
+        mask = np.array(im)
+    with Image.open(os.path.join(roi_dir, "overlay", f"{tag}_overlay.png")) as im:
+        overlay = np.array(im)
+    with zipfile.ZipFile(os.path.join(roi_dir, "zip", f"{tag}.zip")) as zf:
+        entries = [(i.filename, zf.read(i)) for i in zf.infolist()]
+    return js, mask, overlay, entries
+
+
+def score_refine(roi_dir: str, frames: dict) -> dict:
+    """Every frame's refined polygons against the generator's outlines
+    through ``evalseg.match_instances`` at IoU >= 0.5 (frames in threads):
+    recall and mean IoU over all frames, and how many rough polygons came
+    back unrefined."""
+    import numpy as np
+
+    from imageprocess_tpu_torch.core import roiio
+    from imageprocess_tpu_torch.segment.evalseg import match_instances
+
+    def one(tag):
+        polys = roiio.load_roi_polygons(os.path.join(roi_dir, f"{tag}.json"))
+        fr = frames[tag]
+        if len(polys) != len(fr["rough"]):
+            raise SmokeError(f"refine {tag}: {len(polys)} polygons for "
+                             f"{len(fr['rough'])} rough ones")
+        kept = sum(np.array_equal(p, r) for p, r in zip(polys, fr["rough"]))
+        return match_instances(polys, fr["truth"], (H, W), 0.5), kept
+
+    with cf.ThreadPoolExecutor(len(frames)) as pool:
+        res = list(pool.map(one, sorted(frames)))
+    ious = [iou for m, _ in res for *_, iou in m["pairs"]]
+    n_true = sum(len(frames[t]["truth"]) for t in frames)
+    return {"recall": len(ious) / n_true, "mean_iou": float(np.mean(ious)),
+            "n_true": n_true, "matched": len(ious),
+            "unrefined": sum(k for _, k in res)}
+
+
+def refine_card_vs_cpu(folder: str, frames: dict, card_dir: str, mode: str) -> dict:
+    """Stage 1 refined on the card (*card_dir*) against the port on the
+    CPU.  Per rough polygon, ``segment_inside_polygon`` on both devices.
+    Percentile mode (a sort quantile): equal thresholds, equal polygons and
+    equal bundles (JSON, mask pixels, overlay pixels, zip entries), or the
+    check fails.  BND mode (its moments are float32 sums in another order):
+    thresholds within 1e-5 relative and, unless a pixel of the polygon's
+    bbox lies between the two thresholds, the same polygon; when no polygon
+    has such a pixel, equal bundles."""
+    import numpy as np
+
+    from imageprocess_tpu_torch.segment.autoseg import segment_inside_polygon
+
+    exact = mode == "percentile"
+    tag = sorted(frames)[0]
+    img = frames[tag]["img"].astype(np.float32)
+    p = REFINE_MODES[mode]
+    max_rel, free = 0.0, 0
+    for poly in frames[tag]["rough"]:
+        a, _, pa = segment_inside_polygon(img, poly, p, mode=mode, device="cuda")
+        b, _, pb = segment_inside_polygon(img, poly, p, mode=mode, device="cpu")
+        rel = abs(a - b) / abs(b)
+        max_rel = max(max_rel, rel)
+        if rel > (0.0 if exact else 1e-5):
+            raise SmokeError(f"refine {mode}: card threshold {a} vs CPU {b}")
+        x0, y0 = np.floor(poly.min(0)).astype(int)
+        x1, y1 = np.ceil(poly.max(0)).astype(int)
+        box = img[max(y0, 0):y1, max(x0, 0):x1]
+        lo, hi = min(a, b), max(a, b)
+        if ((box >= lo) & (box < hi)).any():
+            continue   # BND: a pixel flips between the thresholds, may differ
+        free += 1
+        if (pa is None) != (pb is None) or (pa is not None and not np.array_equal(pa, pb)):
+            raise SmokeError(f"refine {mode}: card polygon != CPU polygon "
+                             f"(thresholds {a} / {b}, no pixel between)")
+    n = len(frames[tag]["rough"])
+    if exact and free != n:
+        raise SmokeError(f"refine {mode}: {free} of {n} polygons compared")
+    if free == n:
+        cpu_dir, _, _ = refine_run(folder, f"{mode}_cpu", mode, "cpu", [tag])
+        card, cpu = bundle_files(card_dir, tag), bundle_files(cpu_dir, tag)
+        if card[0] != cpu[0] or card[3] != cpu[3]:
+            raise SmokeError(f"refine {mode}: card JSON or zip != CPU's")
+        for what, x, y in (("mask", card[1], cpu[1]), ("overlay", card[2], cpu[2])):
+            if x.shape != y.shape or not np.array_equal(x, y):
+                raise SmokeError(f"refine {mode}: card {what} != CPU {what}")
+    return {"thr_max_rel": max_rel, "polygons": n, "checked_equal": free,
+            "bundle_equal": free == n}
+
+
+def run_deck(folder: str) -> dict:
+    """``run_fret_ppt`` over ``S01_t00_roi1_ratio.png`` / ``_bf.png``
+    thumbnails (2 stages x 2 ROIs x 5 timepoints) written with PIL; the deck
+    read back with ``read_pptx_summary``."""
+    import numpy as np
+    from PIL import Image
+
+    from imageprocess_tpu_torch.pipelines.fretppt import run_fret_ppt
+    from imageprocess_tpu_torch.report.pptxlite import read_pptx_summary
+
+    os.makedirs(folder, exist_ok=True)
+    rng = np.random.default_rng(7)
+    for s in DECK["stages"]:
+        for r in DECK["rois"]:
+            for t in range(DECK["times"]):
+                for suffix in ("ratio", "bf"):
+                    arr = (rng.random((96, 96, 3)) * 255).astype(np.uint8)
+                    Image.fromarray(arr).save(
+                        os.path.join(folder, f"{s}_t{t:02d}_roi{r}_{suffix}.png"))
+    t0 = time.perf_counter()
+    ok, path = run_fret_ppt(folder, log=lambda *_: None)
+    wall = time.perf_counter() - t0
+    if not ok:
+        raise SmokeError(f"deck: {path}")
+    summary = read_pptx_summary(path)
+    n_slides = len(DECK["stages"]) * len(DECK["rois"])
+    pics = [s["pictures"] for s in summary["slides"]]
+    if pics != [2 * DECK["times"]] * n_slides or \
+            len(summary["media"]) != n_slides * 2 * DECK["times"]:
+        raise SmokeError(f"deck: pictures per slide {pics}, "
+                         f"{len(summary['media'])} media")
+    return {"slides": len(pics), "pictures": sum(pics), "s": wall,
+            "bytes": os.path.getsize(path)}
+
+
+def run_refine_path(folder: str) -> dict:
+    """ROI refinement on the card (``refine_and_save(device="cuda")``) over
+    4 synthcells frames with rough polygons: percentile mode over all four
+    (the first warm, the next two steady, the last under
+    ``torch.profiler``), BND mode over stage 1, each scored against the
+    generator's outlines; ms per polygon of ``segment_inside_polygon``,
+    then its phases (CUDA events) and CCL rounds over stage 1; stage 1
+    against the CPU, both modes in two threads; then the deck."""
+    import numpy as np
+    import torch
+
+    from imageprocess_tpu_torch.segment.autoseg import segment_inside_polygon
+    from imageprocess_tpu_torch.timing import PhaseTimer
+
+    t0 = time.perf_counter()
+    frames = make_refine_dataset(folder)
+    data_s = time.perf_counter() - t0
+    tags = sorted(frames)
+    first = tags[0]
+    n_polys = {t: len(frames[t]["rough"]) for t in tags}
+    runs = {"percentile": refine_run(folder, "percentile", "percentile", "cuda", tags,
+                                     profile_last=True),
+            "bnd": refine_run(folder, "bnd", "bnd", "cuda", [first])}
+    scores = {"percentile": score_refine(runs["percentile"][0], frames),
+              "bnd": score_refine(runs["bnd"][0], {first: frames[first]})}
+    if scores["percentile"]["recall"] < REFINE_MIN_RECALL:
+        raise SmokeError(f"refine: percentile recall {scores['percentile']}")
+
+    img = frames[first]["img"].astype(np.float32)
+    loop_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for poly in frames[first]["rough"]:
+            segment_inside_polygon(img, poly, REFINE_MODES["percentile"], device="cuda")
+        torch.cuda.synchronize()
+        loop_s.append(time.perf_counter() - t1)
+    timer = PhaseTimer("cuda")
+    for poly in frames[first]["rough"]:
+        segment_inside_polygon(img, poly, REFINE_MODES["percentile"], device="cuda",
+                               timer=timer)
+    phases = timer.times_ms()
+    prof = runs["percentile"][2]
+    with cf.ThreadPoolExecutor(len(REFINE_MODES)) as pool:
+        vs_cpu = dict(zip(REFINE_MODES, pool.map(
+            lambda mode: refine_card_vs_cpu(folder, frames, runs[mode][0], mode),
+            REFINE_MODES)))
+    deck = run_deck(os.path.join(folder, "deck"))
+    n_all = sum(n_polys.values())
+    frame_s = {mode: [sum(parts) for parts in r[1]] for mode, r in runs.items()}
+    steady = runs["percentile"][1][1:]
+    return {"data_s": data_s, "polygons": n_polys, "frame_s": frame_s,
+            "warm_s": frame_s["percentile"][0],
+            "steady_s": sum(frame_s["percentile"][1:]) / len(steady),
+            "steady_parts_s": [sum(col) / len(steady) for col in zip(*steady)],
+            "ms_per_polygon": 1e3 * min(loop_s) / n_polys[first],
+            "loop_s": loop_s, "n_all": n_all, "scores": scores,
+            "phases_ms": phases, "counts": dict(timer.counts),
+            "profiled": tags[-1], "profile": prof,
+            "launches_per_polygon": prof["events"] / n_polys[tags[-1]],
+            "vs_cpu": vs_cpu, "deck": deck}
+
 
 def build_kernels() -> None:
     """Build every kernel, one nvcc each, all started together."""
@@ -2643,6 +2973,55 @@ def main(argv) -> int:
         "polygons", "warm_s", "steady_s", "times_s", "steady_mpix_s",
         "phases_ms", "counts", "vs_cpu", "vs_truth")}, "card": card}))
     stamp("segmentation")
+    ref = run_refine_path(os.path.join(data, "refine"))
+    sc, rp, fs = ref["scores"], ref["profile"], ref["frame_s"]
+    print(f"refine path ok: refine_and_save(device='cuda') over {REFINE_STAGES} "
+          f"synthcells fluor frames {H}x{W} u16 (dataset {ref['data_s']:.1f} s), "
+          f"rough polygons per frame {list(ref['polygons'].values())}; vs the "
+          f"generator's outlines at IoU>=0.5: percentile "
+          f"(p{REFINE_MODES['percentile']:g}) recall {sc['percentile']['recall']:.4f}, "
+          f"mean IoU {sc['percentile']['mean_iou']:.4f}, bnd (k "
+          f"{REFINE_MODES['bnd']:g}) recall {sc['bnd']['recall']:.4f}, mean IoU "
+          f"{sc['bnd']['mean_iou']:.4f} over stage 1 ({sc['percentile']['n_true']} / "
+          f"{sc['bnd']['n_true']} true outlines; "
+          f"unrefined {sc['percentile']['unrefined']} / {sc['bnd']['unrefined']})")
+    for mode, vc in ref["vs_cpu"].items():
+        print(f"refine card vs CPU ({mode}, stage 1): thresholds max rel diff "
+              f"{vc['thr_max_rel']:.3e}, {vc['checked_equal']} of {vc['polygons']} "
+              f"polygons without a pixel between the thresholds and equal; bundle "
+              f"(JSON, mask, overlay, zip entries) equal: {vc['bundle_equal']}")
+    print(f"refine e2e on {card}: percentile seconds per frame (segmentation and "
+          f"the bundle) warm {ref['warm_s']:.4f}, steady {ref['steady_s']:.4f} "
+          f"(frames {[round(x, 4) for x in fs['percentile']]}; steady parts: "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in zip(
+              ("segmentation and JSON", "mask", "overlay", "zip"),
+              ref["steady_parts_s"]))
+          + f"), bnd (stage 1) {[round(x, 4) for x in fs['bnd']]}; segment_inside_polygon "
+          f"{ref['ms_per_polygon']:.3f} ms per polygon (stage 1, best of "
+          f"{[round(x, 4) for x in ref['loop_s']]} s for {ref['polygons']['S01']})")
+    n1 = ref["polygons"]["S01"]
+    print(f"refine phases per polygon on {card} (CUDA events over the "
+          f"{n1} polygons of stage 1): " + ", ".join(
+              f"{k} {v / n1:.3f} ms" for k, v in ref["phases_ms"].items())
+          + "; CCL rounds per polygon: " + ", ".join(
+              f"{k} {v / n1:.2f}" for k, v in ref["counts"].items()))
+    print(f"refine under torch.profiler on {card}: frame {ref['profiled']} of the "
+          f"percentile run with its bundle {rp['wall_s']:.4f} s, "
+          f"device busy {rp['device_ms']:.3f} ms over {rp['events']} kernels and "
+          f"copies ({ref['launches_per_polygon']:.0f} per polygon; idle "
+          f"{100 * rp['idle_share']:.1f} % of the frame); largest: {rp['top']}")
+    dk = ref["deck"]
+    print(f"deck ok: run_fret_ppt over {len(DECK['stages'])} stages x "
+          f"{len(DECK['rois'])} ROIs x {DECK['times']} timepoints: {dk['slides']} "
+          f"slides, {dk['pictures']} pictures read back, {dk['bytes']} B in "
+          f"{dk['s']:.4f} s")
+    print(json.dumps({"refine": {k: ref[k] for k in (
+        "polygons", "frame_s", "warm_s", "steady_s", "steady_parts_s",
+        "ms_per_polygon", "phases_ms",
+        "counts",
+        "launches_per_polygon", "scores", "vs_cpu", "profile", "deck")},
+        "card": card}))
+    stamp("refine and deck")
     workers = max(8, (os.cpu_count() or 1) * 2)
     dec = time_host_decode(data, workers)
     print(f"host share alone on this machine ({os.cpu_count()} cores, "

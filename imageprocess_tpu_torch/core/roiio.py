@@ -3,18 +3,23 @@
 
 ``roi/S01.json``: ``{"name", "image_shape": {"height","width"},
 "rois": [[[x, y], ...], ...], "view_params": {...}, "generated_by": ...}``;
-``roi/S01.png``: a binary mask, white = inside.  ImageJ zips and MATLAB
-boundaries stay with the reference module for now.  PIL is imported only
-by the PNG reader.
+``roi/S01.png``: a binary mask, white = inside; ``roi/zip/S01.zip``: one
+ImageJ ``.roi`` polygon per entry, ``roi_<N>.roi``.  MATLAB boundaries stay
+with the reference module for now.  PIL is imported only by the PNG
+reader.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import struct
+import zipfile
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from .naming import natural_key
 
 
 def load_roi_polygons(json_path: str, min_vertices: int = 3) -> List[np.ndarray]:
@@ -107,3 +112,120 @@ def count_rois(roi_base: str) -> int:
         except Exception:  # noqa: BLE001 — an unreadable bundle weighs 0
             return 0
     return 1 if os.path.exists(roi_base + ".png") else 0
+
+
+# --- ImageJ .roi ----------------------------------------------------------------
+# Binary layout per the public ImageJ source (ij.io.RoiEncoder / RoiDecoder):
+# 64-byte header starting with magic "Iout", version, roi type (0=polygon),
+# bounding box as shorts, n coordinates, then relative int16 x coords followed
+# by y coords.
+
+_IJ_MAGIC = b"Iout"
+_IJ_VERSION = 227
+_IJ_TYPE_POLYGON = 0
+
+
+def encode_imagej_roi(poly_xy: np.ndarray, name: str = "") -> bytes:
+    """One polygon -> ImageJ ``.roi`` bytes (integer-pixel polygon ROI).
+
+    When *name* is given it is persisted the ImageJ way (the reference's
+    roifile writer does the same, src/roi_manual_drawer.py:1280-1292):
+    header offset 60 points at a 64-byte header2 whose fields 16/20 give
+    the name offset/length, followed by the name as UTF-16BE chars."""
+    pts = np.asarray(poly_xy, dtype=float)
+    xs = np.round(pts[:, 0]).astype(np.int32)
+    ys = np.round(pts[:, 1]).astype(np.int32)
+    left, top = int(xs.min()), int(ys.min())
+    right, bottom = int(xs.max()), int(ys.max())
+    n = len(xs)
+    # the .roi format stores the bbox, vertex count, and relative coords as
+    # signed 16-bit — validate up front so an out-of-range polygon (e.g. on
+    # a stitched frame past x=32767) fails with an actionable message
+    # instead of a bare struct.error mid-zip
+    if not (-32768 <= top and bottom <= 32767
+            and -32768 <= left and right <= 32767):
+        raise ValueError(
+            f"polygon bbox ({left},{top})-({right},{bottom}) exceeds the "
+            "ImageJ .roi signed-16-bit coordinate range")
+    if n > 32767 or right - left > 32767 or bottom - top > 32767:
+        raise ValueError(
+            "polygon exceeds the ImageJ .roi 16-bit limits "
+            f"(n={n}, extent {right - left}x{bottom - top})")
+    header = bytearray(64)
+    header[0:4] = _IJ_MAGIC
+    struct.pack_into(">h", header, 4, _IJ_VERSION)
+    header[6] = _IJ_TYPE_POLYGON
+    struct.pack_into(">hhhh", header, 8, top, left, bottom, right)
+    struct.pack_into(">h", header, 16, n)
+    body = bytearray()
+    for v in xs - left:
+        body += struct.pack(">h", int(v))
+    for v in ys - top:
+        body += struct.pack(">h", int(v))
+    if not name:
+        return bytes(header) + bytes(body)
+    h2_off = 64 + len(body)
+    struct.pack_into(">i", header, 60, h2_off)
+    header2 = bytearray(64)
+    struct.pack_into(">i", header2, 16, h2_off + 64)   # name offset
+    name_bytes = name.encode("utf-16-be")
+    # name length in UTF-16 code units (== ImageJ's Java char count), not
+    # Python code points: non-BMP chars are surrogate PAIRS in UTF-16
+    struct.pack_into(">i", header2, 20, len(name_bytes) // 2)
+    return bytes(header) + bytes(body) + bytes(header2) + name_bytes
+
+
+def decode_imagej_roi(blob: bytes) -> np.ndarray:
+    """ImageJ ``.roi`` bytes -> (N, 2) float array of [x, y]."""
+    if blob[0:4] != _IJ_MAGIC:
+        raise ValueError("not an ImageJ ROI file")
+    top, left, _bottom, _right = struct.unpack_from(">hhhh", blob, 8)
+    n = struct.unpack_from(">h", blob, 16)[0]
+    xs = np.frombuffer(blob, dtype=">i2", count=n, offset=64).astype(float) + left
+    ys = np.frombuffer(blob, dtype=">i2", count=n, offset=64 + 2 * n).astype(float) + top
+    return np.stack([xs, ys], axis=1)
+
+
+def decode_imagej_roi_name(blob: bytes) -> str:
+    """The ROI name persisted by :func:`encode_imagej_roi` ('' if none)."""
+    if len(blob) < 64 or blob[0:4] != _IJ_MAGIC:
+        return ""
+    h2_off = struct.unpack_from(">i", blob, 60)[0]
+    if h2_off <= 0 or h2_off + 64 > len(blob):
+        return ""
+    name_off = struct.unpack_from(">i", blob, h2_off + 16)[0]
+    name_len = struct.unpack_from(">i", blob, h2_off + 20)[0]
+    if name_off <= 0 or name_len <= 0 or name_off + 2 * name_len > len(blob):
+        return ""
+    return blob[name_off:name_off + 2 * name_len].decode("utf-16-be")
+
+
+def save_imagej_roi_zip(zip_path: str, polygons: Sequence[np.ndarray],
+                        base: str = "") -> None:
+    """Zip of per-polygon .roi entries named ``roi_<N>.roi`` — the drawer's
+    exact convention (src/roi_manual_drawer.py:1280-1292; verified against
+    the committed golden roi/zip/S01.zip)."""
+    os.makedirs(os.path.dirname(zip_path) or ".", exist_ok=True)
+    tmp = zip_path + ".tmp"
+    try:
+        with zipfile.ZipFile(tmp, "w", zipfile.ZIP_DEFLATED) as zf:
+            for i, poly in enumerate(polygons, 1):
+                zf.writestr(f"roi_{i}.roi",
+                            encode_imagej_roi(poly, f"roi_{i}"))
+        os.replace(tmp, zip_path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.remove(tmp)  # atomic-write contract: never leave a .tmp
+        raise
+
+
+def load_imagej_roi_zip(zip_path: str) -> List[np.ndarray]:
+    """Polygons in ROI-number order.  Entries sort by natural key —
+    lexicographic order would permute zips with >= 10 ROIs (roi_10 before
+    roi_2), silently mis-pairing polygons with per-ROI result rows."""
+    polys = []
+    with zipfile.ZipFile(zip_path) as zf:
+        for info in sorted(zf.infolist(), key=lambda i: natural_key(i.filename)):
+            if info.filename.lower().endswith(".roi"):
+                polys.append(decode_imagej_roi(zf.read(info)))
+    return polys

@@ -4,7 +4,8 @@ Vertex counts are tiny (tens), so this stays on the host; only
 rasterization and pixel statistics go to the device.  Formula parity with
 the reference: perimeter, shoelace area and the Andrew monotone-chain hull
 of src/MOR_by_ROI.py:166-191, the signed-area centroid with its
-vertex-mean fallback of src/roi_manual_drawer.py:421-433.
+vertex-mean fallback of src/roi_manual_drawer.py:421-433, and the
+Douglas-Peucker simplification of the drawer's refined contours.
 """
 
 from __future__ import annotations
@@ -65,6 +66,39 @@ def convex_hull(points: np.ndarray) -> np.ndarray:
             upper.pop()
         upper.append(tuple(p))
     return np.array(lower[:-1] + upper[:-1], dtype=float)
+
+
+def douglas_peucker(points: np.ndarray, tolerance: float) -> np.ndarray:
+    """Ramer-Douglas-Peucker polyline simplification (keeps endpoints).
+
+    Equivalent to ``skimage.measure.approximate_polygon`` up to tie-breaking;
+    tolerance is the max perpendicular deviation in pixels."""
+    pts = np.asarray(points, dtype=float)
+    if len(pts) < 3 or tolerance <= 0:
+        return pts.copy()
+    keep = np.zeros(len(pts), dtype=bool)
+    keep[0] = keep[-1] = True
+    stack = [(0, len(pts) - 1)]
+    while stack:
+        lo, hi = stack.pop()
+        if hi - lo < 2:
+            continue
+        a, b = pts[lo], pts[hi]
+        seg = b - a
+        seg_len = np.hypot(*seg)
+        mid = pts[lo + 1 : hi]
+        if seg_len == 0:
+            dists = np.hypot(*(mid - a).T)
+        else:
+            d = mid - a
+            dists = np.abs(seg[0] * d[:, 1] - seg[1] * d[:, 0]) / seg_len
+        imax = int(np.argmax(dists))
+        if dists[imax] > tolerance:
+            split = lo + 1 + imax
+            keep[split] = True
+            stack.append((lo, split))
+            stack.append((split, hi))
+    return pts[keep]
 
 
 def polygon_bbox(poly: np.ndarray) -> Tuple[int, int, int, int]:

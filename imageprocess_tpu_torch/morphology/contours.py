@@ -1,11 +1,137 @@
-"""Label map -> polygons on the host (the port's copy; cv2 is imported
-inside the function)."""
+"""Contours on the host (the port's copy of
+``imageprocess_tpu/morphology/contours.py``).
+
+``find_contours(image, level)`` is marching squares in the manner of
+``skimage.measure.find_contours``: (N, 2) float arrays of (row, col)
+vertices, sub-pixel interpolated at *level*, closed loops having first ==
+last vertex, saddles resolved low-connected.  The cell cases are
+vectorized numpy; the segment chaining, keyed on coordinates rounded to 9
+decimals, is a Python loop over the emitted segments, so the vertices come
+out in the JAX module's order.  ``masks_to_polygons`` (label map ->
+polygons) imports cv2 inside the function.
+"""
 
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List, Tuple
 
 import numpy as np
+
+
+def _edge_points(a: np.ndarray, level: float):
+    """Interpolated crossing points for every cell, as coordinate arrays."""
+    ul = a[:-1, :-1]
+    ur = a[:-1, 1:]
+    ll = a[1:, :-1]
+    lr = a[1:, 1:]
+    r0, c0 = np.mgrid[0 : a.shape[0] - 1, 0 : a.shape[1] - 1]
+
+    def frac(u, v):
+        d = v - u
+        with np.errstate(divide="ignore", invalid="ignore"):
+            f = np.where(d != 0, (level - u) / np.where(d != 0, d, 1.0), 0.5)
+        return np.clip(f, 0.0, 1.0)
+
+    top = np.stack([r0.astype(float), c0 + frac(ul, ur)], -1)
+    bottom = np.stack([r0 + 1.0, c0 + frac(ll, lr)], -1)
+    left = np.stack([r0 + frac(ul, ll), c0.astype(float)], -1)
+    right = np.stack([r0 + frac(ur, lr), c0 + 1.0], -1)
+    case = (
+        (ul > level).astype(np.int8)
+        + 2 * (ur > level).astype(np.int8)
+        + 4 * (ll > level).astype(np.int8)
+        + 8 * (lr > level).astype(np.int8)
+    )
+    return case, top, bottom, left, right
+
+
+# per-case undirected segments between edge points (T, B, L, R)
+_CASE_SEGS = {
+    1: [("T", "L")],
+    2: [("T", "R")],
+    3: [("L", "R")],
+    4: [("L", "B")],
+    5: [("T", "B")],
+    6: [("T", "R"), ("L", "B")],  # saddle, low-connected
+    7: [("R", "B")],
+    8: [("R", "B")],
+    9: [("T", "L"), ("R", "B")],  # saddle, low-connected
+    10: [("T", "B")],
+    11: [("L", "B")],
+    12: [("L", "R")],
+    13: [("T", "R")],
+    14: [("T", "L")],
+}
+
+
+def find_contours(a: np.ndarray, level: float = 0.5) -> List[np.ndarray]:
+    a = np.asarray(a, dtype=float)
+    if a.ndim != 2 or min(a.shape) < 2:
+        return []
+    case, top, bottom, left, right = _edge_points(a, level)
+    pts = {"T": top, "B": bottom, "L": left, "R": right}
+
+    segs: List[Tuple[Tuple[float, float], Tuple[float, float]]] = []
+    for c, pairs in _CASE_SEGS.items():
+        ys, xs = np.nonzero(case == c)
+        if ys.size == 0:
+            continue
+        for e1, e2 in pairs:
+            p1 = pts[e1][ys, xs]
+            p2 = pts[e2][ys, xs]
+            for k in range(ys.size):
+                segs.append((tuple(p1[k]), tuple(p2[k])))
+
+    # chain undirected segments into paths
+    def key(p):
+        return (round(p[0], 9), round(p[1], 9))
+
+    adj: Dict[tuple, List[int]] = {}
+    for i, (p1, p2) in enumerate(segs):
+        adj.setdefault(key(p1), []).append(i)
+        adj.setdefault(key(p2), []).append(i)
+
+    used = [False] * len(segs)
+    contours: List[np.ndarray] = []
+
+    def walk(start_pt, seg_idx):
+        path = [start_pt]
+        cur = start_pt
+        i = seg_idx
+        while True:
+            used[i] = True
+            p1, p2 = segs[i]
+            nxt = p2 if key(p1) == key(cur) else p1
+            path.append(nxt)
+            cur = nxt
+            cands = [j for j in adj.get(key(cur), []) if not used[j]]
+            if not cands:
+                break
+            i = cands[0]
+        return path
+
+    for i in range(len(segs)):
+        if used[i]:
+            continue
+        p1, _ = segs[i]
+        path = walk(p1, i)
+        if key(path[0]) != key(path[-1]):
+            # open path: extend from the original start in the other direction
+            cands = [j for j in adj.get(key(path[0]), []) if not used[j]]
+            if cands:
+                back = walk(path[0], cands[0])
+                path = list(reversed(back))[:-1] + path
+        contours.append(np.array(path, dtype=float))
+    return contours
+
+
+def polygon_area_contour(xy: np.ndarray) -> float:
+    """|shoelace| area of an (N, 2) [x, y] polygon — the drawer's
+    ``polygon_area`` (src/roi_manual_drawer.py:320-326).  Delegates to the
+    one shoelace implementation (geom.polygon.shoelace_area)."""
+    from ..geom.polygon import shoelace_area
+
+    return shoelace_area(xy)
 
 
 def masks_to_polygons(

@@ -69,6 +69,12 @@ def test_main_path_import_pulls_in_no_jax_pil_pandas():
         "import imageprocess_tpu_torch.pipelines.nesprin2\n"
         "import imageprocess_tpu_torch.morphology.regions\n"
         "import imageprocess_tpu_torch.report.render\n"
+        "import imageprocess_tpu_torch.segment.autoseg\n"
+        "import imageprocess_tpu_torch.segment.drawer\n"
+        "import imageprocess_tpu_torch.segment.evalseg\n"
+        "import imageprocess_tpu_torch.morphology.contours\n"
+        "import imageprocess_tpu_torch.report.pptxlite\n"
+        "import imageprocess_tpu_torch.pipelines.fretppt\n"
         "import chip_smoke\n"
         "mods = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'PIL', 'pandas', 'matplotlib', 'h5py', "
