@@ -20,7 +20,8 @@ default intensity path) and ``run_fret``, the Nesprin-2 rim-FRET runners
 and ``run_fa_batch`` (``.pipelines.fa``, on an experiment of the same shape
 with bright blobs inside each cell), the TIFF image outputs of
 ``run_intensity``, ``run_fret`` and ``run_nesprin2`` (``do_tif=True``),
-U-Net cell segmentation of
+their PNG outputs (``do_png=True``), the morphology overlays and the
+channel cropper (``.pipelines.crop.run_crop``), U-Net cell segmentation of
 one 1536 x 2048 frame
 (``imageprocess_tpu_torch.segment.cellseg.segment_frame_unet``, the bundled
 golden checkpoint), ROI refinement (``.segment.drawer.refine_and_save``) and
@@ -110,7 +111,22 @@ of which exits non-zero on failure:
    the rows with TIFFs equal the tables-only rows; the files, read back
    with PIL, equal the same run's on the CPU (float32 within 1e-6, NaN in
    the same places, previews within one count);
-13. segmentation: a deterministic synthcells "fluor" frame (u16), segmented
+13. PNG outputs and the cropper: PIL's FreeType and the committed font
+   first; then, on 2 stages with 4 of the 18 ROIs and at the configs' PNG
+   defaults (dpi 300, 500-px crops, FRET's and rim FRET's inset
+   colorbar), ``run_intensity``, ``run_fret`` and ``run_nesprin2``
+   (annulus and QC) with ``do_png`` and ``run_morphology`` with
+   ``MorConfig``'s overlays: a checked run (every ``roistats_f32`` launch
+   held to its plain version, the count set to 0 just before and read
+   just after), a timed tables-only run and a timed run with the PNGs
+   (extra seconds and PNGs per key), the rows with PNGs equal to the
+   tables-only rows, stage 1's PNGs against the same run on the CPU (the
+   same files and canvases, pixels equal but on at most 0.1 % of a canvas,
+   there within one LUT step); ``run_crop`` over the 2 stages with all 18
+   ROIs (seconds per frame, stage 1 against the CPU) and
+   ``crop_view_tiled`` by CUDA events, its card output against the CPU's
+   on the same inputs;
+14. segmentation: a deterministic synthcells "fluor" frame (u16), segmented
    to polygons once warm and three times timed (e2e Mpix/s = H*W / wall
    seconds, frame on the host to polygons), once more with per-phase CUDA
    events and the CCL round counts.  Checks: the card's label map agrees
@@ -118,7 +134,7 @@ of which exits non-zero on failure:
    the card's post-process fed the CPU's network output gives the CPU's
    label map exactly, and the generalist checkpoint finds the generator's
    cells (recall >= 0.90, mean IoU >= 0.70 at IoU >= 0.3);
-14. refine: 4 synthcells "fluor" frames of 1536 x 2048 u16 (24 cells of
+15. refine: 4 synthcells "fluor" frames of 1536 x 2048 u16 (24 cells of
    radius 20-60, a fixed seed) with one rough polygon per generator
    instance of >= 150 px (its convex hull scaled 1.3x about its centroid,
    one-decimal vertices: bbox tiles of 64-256 px); ``refine_and_save`` on
@@ -137,7 +153,7 @@ of which exits non-zero on failure:
    ``run_fret_ppt`` over ratio / BF thumbnails written with PIL, read back
    with ``read_pptx_summary`` (slides and pictures counted).  The path
    launches no hand kernel: the JAX package's tile program is XLA;
-15. kernel and plain times per chunk: each kernel's time per call through
+16. kernel and plain times per chunk: each kernel's time per call through
    its Python wrapper against the plain version's (CUDA events around 50
    calls, in turns plain / kernel / kernel / plain), the kernel's device
    time by CUDA graph replay (the wrapper's host time left out), the grid
@@ -152,7 +168,7 @@ kernel table (``ms`` per call, ``device_ms`` by graph replay, ``bound_ms``,
 masked moments with six exact order statistics -- and
 ``launches_per_run``; ``roistats_f32`` also ``launches_serial`` and its
 ``serial_shapes`` times, ``launches_nesprin2`` and its ``nesprin2_shapes``
-times, ``launches_tiff_outputs``), then ``{"ok": true, "device": {...}}``.  Without
+times, ``launches_tiff_outputs``, ``launches_image_outputs``), then ``{"ok": true, "device": {...}}``.  Without
 a card, or outside a checkout, it prints no result and exits non-zero.
 
 ``python3 chip_smoke.py --kernels-only`` stops after phase 3.
@@ -2395,6 +2411,222 @@ def run_tiff_outputs(data: str, device: str) -> dict:
     return res
 
 
+# ------------------------------------------------------------------ PNG outputs and the cropper
+
+IMAGE_STAGES = 2
+IMAGE_ROIS = 4             # of the 18: the PNG crops per key
+PNG_FRAC = 1e-3            # share of a PNG's pixels that may differ, by one LUT step
+
+
+def check_font() -> str:
+    """PIL's FreeType and the committed font, before any PNG is drawn: the
+    text of every scalebar, title and colorbar needs both."""
+    import hashlib
+
+    import PIL
+    from PIL import features
+
+    from imageprocess_tpu_torch.report import pilcomp
+
+    if not features.check("freetype2"):
+        raise SmokeError(f"PIL {PIL.__version__} was built without FreeType")
+    with open(pilcomp.FONT_PATH, "rb") as f:
+        sha = hashlib.sha256(f.read()).hexdigest()
+    name = " ".join(pilcomp._dejavu(10 * 300 / 72.0, exact=True).getname())
+    return (f"PIL {PIL.__version__}, FreeType {features.version('freetype2')}, "
+            f"{os.path.relpath(pilcomp.FONT_PATH, REPO)} ({name}, sha256 {sha[:16]})")
+
+
+def _png_files(root: str, stage: str = "") -> list:
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, fs in os.walk(root) for f in fs
+                  if f.endswith(".png") and f.startswith(stage))
+
+
+def compare_pngs(card_root: str, cpu_root: str, stage: str, step: int, what: str) -> dict:
+    """The card run's PNGs of *stage* against the CPU run's: the same names
+    and canvas sizes, decoded pixels equal but for at most ``PNG_FRAC`` of
+    a file's pixels within *step* (one LUT step: a ratio a few ulps off can
+    move a pixel across a LUT boundary)."""
+    import numpy as np
+    from PIL import Image
+
+    names = _png_files(card_root, stage)
+    if not names or names != _png_files(cpu_root, stage):
+        raise SmokeError(f"{what}: PNGs {names} vs the CPU run's "
+                         f"{_png_files(cpu_root, stage)}")
+    worst, frac = 0, 0.0
+    for name in names:
+        a = np.asarray(Image.open(os.path.join(card_root, name)).convert("RGB"), np.int16)
+        b = np.asarray(Image.open(os.path.join(cpu_root, name)).convert("RGB"), np.int16)
+        if a.shape != b.shape:
+            raise SmokeError(f"{what} {name}: canvas {a.shape} vs {b.shape}")
+        d = np.abs(a - b).max(-1)
+        worst, frac = max(worst, int(d.max())), max(frac, float((d > 0).mean()))
+        if d.max() > step or (d > 0).mean() > PNG_FRAC:
+            raise SmokeError(f"{what} {name}: pixels differ by up to {d.max()} on "
+                             f"{100 * (d > 0).mean():.3f} % of the canvas")
+    return {"compared": len(names), "max_px_diff": worst, "max_diff_share": frac}
+
+
+class CapturedCropView:
+    """While active, the inputs of each ``crop_view_tiled`` call of
+    ``pipelines.crop`` are kept (for its timing and its card-vs-CPU
+    check)."""
+
+    def __init__(self):
+        from imageprocess_tpu_torch.pipelines import crop
+
+        self.mod, self.real, self.calls = crop, crop.crop_view_tiled, []
+
+    def __enter__(self):
+        def captured(*args, **kw):
+            self.calls.append((args, kw))
+            return self.real(*args, **kw)
+
+        self.mod.crop_view_tiled = captured
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.crop_view_tiled = self.real
+
+
+def run_image_outputs(data: str, device: str) -> dict:
+    """The PNG outputs at the configs' PNG defaults (dpi 300, 500-px crops,
+    FRET's and rim FRET's inset colorbar) on ``IMAGE_STAGES`` stages with
+    ``IMAGE_ROIS`` of the 18 ROIs: ``run_intensity``, ``run_fret`` and
+    ``run_nesprin2`` (annulus and QC) with ``do_png``, ``run_morphology``
+    with ``MorConfig``'s image defaults.  Per runner: a checked run (every
+    ``roistats_f32`` launch held to its plain version, the count set to 0
+    just before and read just after), a timed tables-only run and a timed
+    run with the PNGs, the rows with PNGs equal to the tables-only rows,
+    and stage 1's PNGs against the same run on the CPU.  Then ``run_crop``
+    over the stages with all 18 ROIs (seconds per frame; stage 1 against
+    the CPU) and ``crop_view_tiled`` by CUDA events on the card against
+    the CPU on the same inputs."""
+    import numpy as np
+    import torch
+
+    from imageprocess_tpu_torch.core import roiio
+    from imageprocess_tpu_torch.ops import roi_stats_kernel as rsk
+    from imageprocess_tpu_torch.pipelines import crop, fret, intensity, morphology
+    from imageprocess_tpu_torch.pipelines import nesprin2
+    from imageprocess_tpu_torch.report import cmaps, render
+
+    font = check_font()
+    folder = os.path.join(data, "image_outputs")
+    os.makedirs(os.path.join(folder, "roi"), exist_ok=True)
+    for s in range(1, IMAGE_STAGES + 1):
+        for ch in CHANNELS:
+            shutil.copy(os.path.join(data, f"S{s:02d}_{ch}.TIF"), folder)
+        roiio.save_roi_bundle(os.path.join(folder, "roi", f"S{s:02d}.json"), f"S{s:02d}",
+                              (H, W), bench_polys()[:IMAGE_ROIS])
+
+    def step(*names) -> int:
+        return max(int(np.abs(np.diff(cmaps.lut_u8(c)[:, :3].astype(np.int16), 0)).max())
+                   for c in names)
+
+    quiet = lambda *_: None  # noqa: E731
+    runners = {  # name: (run(png, out, device, **kw), roistats launches per key, LUT step)
+        "run_intensity": (lambda png, out, dev, **kw: intensity.run_intensity(
+            folder, intensity.IntensityConfig(
+                channels=CHANNELS, channel_colors={2: "Green", 3: "Red"}, do_xls=False,
+                do_png=png, **kw), out_root=out, log=quiet, device=dev), 1,
+            step("gray", render.get_cmap_for_color("Green"),
+                 render.get_cmap_for_color("Red"))),
+        "run_fret": (lambda png, out, dev, **kw: fret.run_fret(
+            folder, fret.FretConfig(donor_ch=CHANNELS[0], acceptor_ch=CHANNELS[1],
+                                    do_xls=False, do_png=png, **kw),
+            out_root=out, log=quiet, device=dev), 1, step("gray", "jet")),
+        "run_nesprin2": (lambda png, out, dev, **kw: nesprin2.run_nesprin2(
+            folder, n2_config("annulus on + QC", do_xls=False, do_png=png, **kw),
+            out_root=out, log=quiet, device=dev), 2, step("gray", "turbo")),
+        "run_morphology": (lambda png, out, dev, **kw: morphology.run_morphology(
+            folder, morphology.MorConfig(sel_ch=CHANNELS[0], do_xls=False, save_full=png,
+                                         save_crop=png, **kw),
+            out_root=out, log=quiet, device=dev), 0, step("gray")),
+    }
+    res = {"font": font}
+    for name, (run, per_key, lut_step) in runners.items():
+        card_root = os.path.join(folder, f"RES_{name}_card")
+        rsk.reset_launches()
+        with CheckedRoiRows(f"{name} do_png") as chk:
+            rows = run(True, card_root, device)
+        torch.cuda.synchronize()
+        launches = rsk.launches["roistats_f32"]
+        if launches != per_key * IMAGE_STAGES or len(chk.errs) != launches:
+            raise SmokeError(f"{name} PNGs: {launches} roistats_f32 launches, "
+                             f"{len(chk.errs)} checked, want {per_key * IMAGE_STAGES}")
+        t0 = time.perf_counter()
+        tables = run(False, os.path.join(folder, f"RES_{name}_tables"), device)
+        torch.cuda.synchronize()
+        t_tables = time.perf_counter() - t0
+        if _png_files(os.path.join(folder, f"RES_{name}_tables")):
+            raise SmokeError(f"{name}: a tables-only run wrote PNGs")
+        n_png = len(_png_files(card_root))
+        shutil.rmtree(card_root)
+        t0 = time.perf_counter()
+        again = run(True, card_root, device)
+        torch.cuda.synchronize()
+        t_png = time.perf_counter() - t0
+        for got, what in ((rows, "checked"), (again, "timed")):
+            _rows_equal(got, tables, f"{name} with PNGs ({what}) vs tables-only",
+                        ("_mean", "_std", "_vsum"), IMAGE_STAGES * IMAGE_ROIS)
+        cpu_root = os.path.join(folder, f"RES_{name}_cpu")
+        t0 = time.perf_counter()
+        if name == "run_morphology":            # MorConfig has no stage subset
+            s01 = os.path.join(data, "image_s01")
+            os.makedirs(os.path.join(s01, "roi"), exist_ok=True)
+            shutil.copy(os.path.join(folder, f"S01_{CHANNELS[0]}.TIF"), s01)
+            shutil.copy(os.path.join(folder, "roi", "S01.json"), os.path.join(s01, "roi"))
+            morphology.run_morphology(s01, morphology.MorConfig(
+                sel_ch=CHANNELS[0], do_xls=False), out_root=cpu_root, log=quiet,
+                device="cpu")
+        else:
+            run(True, cpu_root, "cpu", subset_stage=1)
+        cpu_s = time.perf_counter() - t0
+        res[name] = {"launches": launches, "tables_s": t_tables, "png_s": t_png,
+                     "extra_s_per_key": (t_png - t_tables) / IMAGE_STAGES,
+                     "pngs_per_key": n_png / IMAGE_STAGES, "cpu_s": cpu_s, **chk.worst(),
+                     **compare_pngs(card_root, cpu_root, "S01", lut_step, f"{name} PNGs")}
+
+    # the cropper: every ROI of the bench set on each stage
+    roi18 = os.path.join(data, "roi")
+    cfg = crop.CropConfig(channel=CHANNELS[0])
+    card_root = os.path.join(folder, "CROP_card")
+    crop.run_crop(folder, roi18, card_root, cfg, log=quiet, device=device)   # warm
+    shutil.rmtree(card_root)
+    with CapturedCropView() as views:
+        t0 = time.perf_counter()
+        written = crop.run_crop(folder, roi18, card_root, cfg, log=quiet, device=device)
+        torch.cuda.synchronize()
+        crop_s = time.perf_counter() - t0
+    if len(written) != IMAGE_STAGES * N_ROI or len(views.calls) != IMAGE_STAGES:
+        raise SmokeError(f"run_crop: {len(written)} files, {len(views.calls)} device "
+                         f"calls, want {IMAGE_STAGES * N_ROI} and {IMAGE_STAGES}")
+    cpu_root = os.path.join(folder, "CROP_cpu")
+    crop.run_crop(folder, roi18, cpu_root, crop.CropConfig(channel=CHANNELS[0],
+                                                           subset_stage=1),
+                  log=quiet, device="cpu")
+    res["run_crop"] = {"files": len(written), "s_per_frame": crop_s / IMAGE_STAGES,
+                       **compare_pngs(card_root, cpu_root, "S01", step("gray"),
+                                      "run_crop PNGs")}
+    args, kw = views.calls[0]
+    view_ms = cuda_ms(lambda: crop.crop_view_tiled(*args, **kw), reps=20, warmup=3)
+    card = [x.cpu() for x in crop.crop_view_tiled(*args, **kw)]
+    cpu = crop.crop_view_tiled(*(a.cpu() if torch.is_tensor(a) else a for a in args), **kw)
+    if not (torch.equal(card[1], cpu[1]) and torch.equal(card[2], cpu[2])):
+        raise SmokeError("crop_view_tiled: the card's masks or flags differ from the CPU's")
+    err = float((card[0] - cpu[0]).abs().nan_to_num(0.0).max())
+    if err > 1e-6:
+        raise SmokeError(f"crop_view_tiled: the card's views are {err} off the CPU's")
+    res["crop_view_tiled"] = {"ms": view_ms, "tile": kw["tile"],
+                              "rois": int(args[1].shape[0]), "max_abs_err_vs_cpu": err}
+    shutil.rmtree(folder, ignore_errors=True)
+    shutil.rmtree(os.path.join(data, "image_s01"), ignore_errors=True)
+    return res
+
+
 # ------------------------------------------------------------------ refine and the deck
 
 REFINE_STAGES = 4
@@ -2949,6 +3181,29 @@ def main(argv) -> int:
               f"{r['extra_s_per_key']:.4f} s more per key (download, percentiles, "
               f"writes); the CPU run {r['cpu_s']:.2f} s")
     stamp("TIFF outputs")
+    img = run_image_outputs(data, "cuda")
+    print(f"PNG text: {img['font']}")
+    for name in ("run_intensity", "run_fret", "run_nesprin2", "run_morphology"):
+        r = img[name]
+        print(f"PNG outputs ok: {name} at the PNG defaults (dpi 300, 500-px crops"
+              f"{', the inset colorbar' if name in ('run_fret', 'run_nesprin2') else ''}) on "
+              f"{IMAGE_STAGES} stages x {IMAGE_ROIS} ROIs: {r['pngs_per_key']:g} PNGs per "
+              f"key; stage 1's {r['compared']} PNGs vs the CPU run's: canvases equal, "
+              f"pixels within {r['max_px_diff']} (on {100 * r['max_diff_share']:.4f} % "
+              f"at most); rows equal to the tables-only rows; roistats_f32 launches "
+              f"{r['launches']}, each equal to its plain version (max_abs_err="
+              f"{r['max_abs_err']}); on {card} tables-only {r['tables_s']:.4f} s, with "
+              f"PNGs {r['png_s']:.4f} s = {r['extra_s_per_key']:.4f} s more per key; the "
+              f"CPU run of stage 1 {r['cpu_s']:.2f} s")
+    cr, cv = img["run_crop"], img["crop_view_tiled"]
+    print(f"cropper ok: run_crop(device='cuda') over {IMAGE_STAGES} stages x {N_ROI} "
+          f"ROIs: {cr['files']} PNGs, {cr['s_per_frame']:.4f} s per frame on {card}; "
+          f"stage 1's {cr['compared']} PNGs vs the CPU run's within "
+          f"{cr['max_px_diff']}; crop_view_tiled ({cv['rois']} ROIs, tile {cv['tile']}) "
+          f"{cv['ms']:.4f} ms per call (CUDA events), views within "
+          f"{cv['max_abs_err_vs_cpu']:.2e} of the CPU's, masks and flags equal")
+    print(json.dumps({"image_outputs": img, "card": card}))
+    stamp("PNG outputs and the cropper")
     seg = run_seg_path("cuda")
     print(f"seg path ok: {H}x{W} u16 synthcells fluor frame, golden U-Net "
           f"(tile 256, overlap 32, n_iter 120), {seg['polygons']} polygons; "
@@ -3068,6 +3323,8 @@ def main(argv) -> int:
                                for k in ("serial", "batched")),
                              *(tm["max_abs_err"] for tm in n2_times.values()),
                              *(r["max_abs_err"] for r in tif.values()),
+                             *(img[k]["max_abs_err"] for k in ("run_intensity", "run_fret",
+                                                               "run_nesprin2")),
                              *(tm["max_abs_err"] for tm in serial_times.values())),
                          ftiming),
     }
@@ -3081,6 +3338,8 @@ def main(argv) -> int:
                               for name, nr in n2.items()
                               for mode in ("serial", "batched")},
         "launches_tiff_outputs": {name: r["launches"] for name, r in tif.items()},
+        "launches_image_outputs": {name: img[name]["launches"] for name in (
+            "run_intensity", "run_fret", "run_nesprin2", "run_morphology")},
         "nesprin2_shapes": {label: {k: tm[k] for k in (
             "shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "bytes",
             "valid", "grid", "use_smem", "stage_mask")}

@@ -71,7 +71,7 @@ from ..ops.roistats import choose_tile, pad_local_polys, tile_offsets
 from ..parallel import runner
 from ..report import xlsxlite
 from ..report.excel import _write_csv
-from ..report.render import IMAGE_OUTPUTS
+from ..report.render import FIGURES
 from ..timing import NO_TIMER
 from .intensity import PinnedPool, _bucket, to_device
 
@@ -739,14 +739,14 @@ def restore_cell_settings(out_root: str, s_tag: str) -> Dict[int, dict]:
 def export_fa_crops(*args, **kwargs):
     """Per-cell FA-mask crop PNGs: not ported (matplotlib)."""
     raise NotImplementedError(
-        f"the FA crop PNGs are not ported yet: {IMAGE_OUTPUTS}")
+        f"the FA crop PNGs are not ported yet: {FIGURES}")
 
 
 def save_fa_figs(*args, **kwargs):
     """Per-stage overview figures with the optional MATLAB boundary
     overlay: not ported (matplotlib, h5py)."""
     raise NotImplementedError(
-        f"the FA overview figures are not ported yet: {IMAGE_OUTPUTS}")
+        f"the FA overview figures are not ported yet: {FIGURES}")
 
 
 _CATS = ("OK", "Large", "Small")

@@ -19,10 +19,11 @@ file for frames it does not take) and loads the ROI polygons;
   masks (``ops.roistats.roi_stats_full``, the same kernel).
 
 Only the statistics, areas and the three scalars come back; a pair with no
-ROI file logs ``fret_roi_missing`` and gives no rows.  With ``do_tif`` the
-ratio frame and the ROI union also come back (page-locked staging on a
-card, and only then) and ``report.render.save_fret_images`` writes the
-RAT / RAT_ROI_masked TIFFs, for a pair without ROIs too.
+ROI file logs ``fret_roi_missing`` and gives no rows.  With ``do_tif`` or
+``do_png`` the ratio frame and the ROI union also come back (page-locked
+staging on a card, and only then) and ``report.render.save_fret_images``
+writes the RAT / RAT_ROI_masked TIFFs and the ``PNG_RAT`` full and crop
+PNGs, for a pair without ROIs too (its full-frame outputs).
 
 The batched runner (``run_fret_batched``), per chunk of pairs:
 
@@ -45,9 +46,8 @@ The batched runner (``run_fret_batched``), per chunk of pairs:
 Pairs the batch cannot take (another frame shape, non-u16 frames, no ROI
 file, an ROI that needs the full frame) run ``process_pair`` in key order;
 a config the batch does not cover (``bg_scope != "full"``, a ``bg_mode``
-other than ``percentile``/``none``, ``do_tif``) runs ``run_fret``
-throughout.  ``do_png`` raises ``NotImplementedError`` before a file is
-read.
+other than ``percentile``/``none``, ``do_tif``, ``do_png``) runs
+``run_fret`` throughout.
 """
 
 from __future__ import annotations
@@ -74,7 +74,7 @@ from ..ops.roistats import (
 )
 from ..ops.stats import STAT_FIELDS
 from ..parallel import runner
-from ..report.render import refuse_image_outputs, save_fret_images
+from ..report.render import save_fret_images
 from .intensity import PinnedPool, _bucket, _pack_key, frames_on_host, to_device
 
 t = i18n.t
@@ -337,6 +337,8 @@ def fret_dirs(out_root: str) -> Dict[str, str]:
         "RAT16": os.path.join(out_root, "RAT", "16bit"),
         "RROI32": os.path.join(out_root, "RAT_ROI_masked", "32bit"),
         "RROI16": os.path.join(out_root, "RAT_ROI_masked", "16bit"),
+        "PNG_FULL": os.path.join(out_root, "PNG_RAT", "full"),
+        "PNG_CROP": os.path.join(out_root, "PNG_RAT", "crop"),
     }
 
 
@@ -345,10 +347,11 @@ def process_pair(key, dpath, apath, roi_dir, cfg: FretConfig, out_dirs=None,
                  staging: Optional[PinnedPool] = None) -> List[dict]:
     """One (stage, time) pair synchronously -> its per-ROI rows.  One copy
     brings back the statistics, areas and the three scalars; the ratio and
-    corrected frames stay on the device unless ``cfg.do_tif`` is on: then
-    the ratio frame and the ROI union come back too (through *staging* on a
-    card) and the TIFFs go to *out_dirs* (:func:`fret_dirs`).  A pair
-    without ROIs logs ``fret_roi_missing`` and gives no rows."""
+    corrected frames stay on the device unless ``cfg.do_tif`` or
+    ``cfg.do_png`` is on: then the ratio frame and the ROI union come back
+    too (through *staging* on a card) and the images go to *out_dirs*
+    (:func:`fret_dirs`).  A pair without ROIs logs ``fret_roi_missing`` and
+    gives no rows."""
     dev = resolve_device(device)
     s, t_code = key
     stid = f"{s}_{t_code}" if (cfg.timelapse and t_code is not None) else s
@@ -357,7 +360,7 @@ def process_pair(key, dpath, apath, roi_dir, cfg: FretConfig, out_dirs=None,
     if not polys:
         polys = None
         log(t("fret_roi_missing").format(tag=stid))
-        if not cfg.do_tif:
+        if not (cfg.do_tif or cfg.do_png):
             return []
     H, W = D.shape
     n = len(polys) if polys else 0
@@ -396,8 +399,8 @@ def process_pair(key, dpath, apath, roi_dir, cfg: FretConfig, out_dirs=None,
                       lambda f, c, i=i: packed[STAT_FIELDS.index(f), c, i],
                       area_px[i], eps_f, cfg, d_p, a_p)
             for i in range(n)]
-    if cfg.do_tif:
-        # the megapixel ratio frame leaves the device only for the TIFFs;
+    if cfg.do_tif or cfg.do_png:
+        # the megapixel ratio frame leaves the device only for the images;
         # the tiled step rasterizes no full-frame union for the tables
         if not polys:
             union = None
@@ -427,7 +430,6 @@ def run_fret(
     from ..report.excel import save_fret_excel
 
     dev = resolve_device(device)
-    refuse_image_outputs(cfg.do_png)
     out_root = out_root or os.path.join(folder, "RES")
     dirs = fret_dirs(out_root)
     roi_dir = os.path.join(folder, "roi")
@@ -436,8 +438,9 @@ def run_fret(
         log(t("fret_no_pairs").format(donor=cfg.donor_ch,
                                       acceptor=cfg.acceptor_ch))
         return []
-    # page-locked buffers only for the frames that the TIFFs bring back
-    staging = PinnedPool() if (dev.type == "cuda" and cfg.do_tif) else None
+    # page-locked buffers only for the frames that the images bring back
+    staging = (PinnedPool() if (dev.type == "cuda" and (cfg.do_tif or cfg.do_png))
+               else None)
     loader = runner.PrefetchLoader(
         lambda kv: (kv, load_pair(kv[0], kv[1], kv[2], roi_dir, cfg)),
         pairs, workers=max(1, prefetch_workers))
@@ -498,8 +501,7 @@ def run_fret_batched(
     from ..report.excel import save_fret_excel
 
     dev = resolve_device(device)
-    refuse_image_outputs(cfg.do_png)
-    if (cfg.do_tif or cfg.bg_scope != "full"
+    if (cfg.do_tif or cfg.do_png or cfg.bg_scope != "full"
             or cfg.bg_mode not in ("percentile", "none")):
         return run_fret(folder, cfg, out_root=out_root, log=log,
                         prefetch_workers=prefetch_workers, cancel=cancel,

@@ -43,13 +43,13 @@ no polygons, an ROI that needs the full frame) run ``process_key`` in key
 order; a ``bg_scope`` other than ``"full"`` runs the serial runner
 throughout.
 
-Image outputs: with ``do_tif`` the serial runner copies each key's
-corrected frames to the host (page-locked staging on a card, and only
+Image outputs: with ``do_tif`` or ``do_png`` the serial runner copies each
+key's corrected frames to the host (page-locked staging on a card, and only
 then) and ``report.render.save_intensity_images`` writes the float32 TIFFs
-and their 16-bit previews; the batched runner hands such a config to the
-serial runner.  ``do_png`` raises ``NotImplementedError`` before a file is
-read; ``save_raw_crop_tif`` belongs to the PNG crops and writes nothing
-without them.
+and their 16-bit previews, the full-frame and per-ROI crop PNGs and, with
+``save_raw_crop_tif``, the raw-value crop TIFFs (they come with the PNG
+crops and are written by nothing else); the batched runner hands such a
+config to the serial runner.
 """
 
 from __future__ import annotations
@@ -74,15 +74,15 @@ from ..ops.roistats import (
     choose_tile, pad_local_polys, roi_stats_full, roi_stats_tiled, tile_offsets,
 )
 from ..ops.stats import STAT_FIELDS
-from ..report.render import refuse_image_outputs
+from ..report.render import PanelPngOptions
 
 t = i18n.t
 ChannelGrammar = naming.ChannelGrammar
 @dataclass
 class IntensityConfig:
     """The JAX package's ``IntensityConfig``, field for field (names and
-    defaults); the PNG option objects stay ``None`` (PNG outputs are not
-    ported)."""
+    defaults); ``png_full`` / ``png_crop`` default to a
+    ``report.render.PanelPngOptions()`` each."""
 
     channels: Tuple[int, ...] = (1,)          # chs_to_quant
     timelapse: bool = False
@@ -110,6 +110,12 @@ class IntensityConfig:
     fixed_crop: bool = True
     crop_size: int = 500
     grammar: ChannelGrammar = ChannelGrammar.TOKEN_OR_LAST
+
+    def __post_init__(self):
+        if self.png_full is None:
+            self.png_full = PanelPngOptions()
+        if self.png_crop is None:
+            self.png_crop = PanelPngOptions()
 
 
 def _bucket(n: int, step: int = 8) -> int:
@@ -494,7 +500,6 @@ def run_intensity(
     from ..report.excel import save_intensity_excel
 
     dev = resolve_device(device)
-    refuse_image_outputs(cfg.do_png)
     files = naming.list_tifs(folder)
     keymap = naming.build_keymap(files, cfg.timelapse, cfg.grammar)
     keymap = _apply_subset(keymap, cfg, log)
@@ -525,8 +530,8 @@ def run_intensity(
             logger(line)
         if prog is not None:
             prog.step(max(1, len(rows)), label=str(pending["key"][0]))
-        if cfg.do_tif:
-            # the corrected frames leave the device only for the TIFFs
+        if cfg.do_tif or cfg.do_png:
+            # the corrected frames leave the device only for the images
             with frames_on_host([extras["imgs_bc_dev"]], dev, staging) as (bc,):
                 render.save_intensity_images(dict(extras, imgs_bc=bc), cfg,
                                              out_root)
@@ -589,8 +594,8 @@ def run_intensity_batched(
     chunks in flight so host decode of chunk k+1 overlaps the device work
     of chunk k.  *device* is ``"cuda"`` (default; raises without a card)
     or ``"cpu"`` (the plain PyTorch version, for tests).  Returns the rows
-    in key order.  A ``bg_scope`` other than ``"full"``, or ``do_tif``,
-    runs :func:`run_intensity`."""
+    in key order.  A ``bg_scope`` other than ``"full"``, ``do_tif`` or
+    ``do_png`` runs :func:`run_intensity`."""
     from ..ops.roistats import (
         choose_tile, gather_tiles, pad_local_polys, tile_offsets,
     )
@@ -599,8 +604,7 @@ def run_intensity_batched(
     from ..report.excel import save_intensity_excel
 
     dev = resolve_device(device)
-    refuse_image_outputs(cfg.do_png)
-    if cfg.bg_scope != "full" or cfg.do_tif:
+    if cfg.bg_scope != "full" or cfg.do_tif or cfg.do_png:
         # the image outputs need the full frames on the host
         log(t("int_images_serial"))
         return run_intensity(folder, cfg, out_root=out_root, log=log,

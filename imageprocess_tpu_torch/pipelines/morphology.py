@@ -1,4 +1,4 @@
-"""Per-ROI shape metrics (the reference's MOR_by_ROI), tables only.
+"""Per-ROI shape metrics (the reference's MOR_by_ROI) and their overlay PNGs.
 
 Port of ``imageprocess_tpu/pipelines/morphology.py``.  Reference
 semantics: src/MOR_by_ROI.py -- ``morphology_from_polygon`` (:211-241),
@@ -10,9 +10,10 @@ polygon perimeters and hull areas (vertex math); kept as it is.
 Device part, plain PyTorch: the masks rasterized on ROI bbox tiles and
 their pixel-moment sums, two-pass (centroid first, then centred squares)
 for float32 accuracy; one packed copy per frame brings them back.  The
-vertex math (perimeter, hull, shoelace) stays on the host.  The overlay
-PNGs are not ported: ``save_full`` / ``save_crop`` raise
-``NotImplementedError`` before a file is read.
+vertex math (perimeter, hull, shoelace) stays on the host, and so do the
+overlay PNGs (``save_full``: the frame with numbered outlines; ``save_crop``:
+the titled per-ROI crops), drawn by ``report.render.save_morphology_images``
+from the decoded host frame.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from ..geom.polygon import convex_hull, polygon_perimeter, shoelace_area
 from ..geom.rasterize import rasterize_polygons
 from ..ops.roistats import choose_tile, pad_local_polys, tile_offsets
 from ..parallel.runner import LoadError, PrefetchLoader
-from ..report.render import refuse_image_outputs
+from ..report.render import save_morphology_images
 from .intensity import _bucket, _device_inputs, to_device
 
 t = i18n.t
@@ -42,7 +43,7 @@ MOMENT_FIELDS = ("area", "yc", "xc", "sxx", "syy", "sxy")
 @dataclass
 class MorConfig:
     """The JAX package's ``MorConfig``, field for field (names and
-    defaults; the image defaults raise until the overlays are ported)."""
+    defaults)."""
 
     px_um: float = 0.223
     sel_ch: int = 1
@@ -187,17 +188,19 @@ def run_morphology(
     log=print,
     device="cuda",
 ) -> List[dict]:
-    """MOR_by_ROI main loop (src/MOR_by_ROI.py:379-517), tables only:
-    the per-ROI rows of every frame of the selected channel, and
-    ``RES_MOR/xls/morphology_perROI.{xlsx,csv}``.  *device* is ``"cuda"``
-    (default; raises without a card) or ``"cpu"``."""
+    """MOR_by_ROI main loop (src/MOR_by_ROI.py:379-517): the per-ROI rows
+    of every frame of the selected channel,
+    ``RES_MOR/xls/morphology_perROI.{xlsx,csv}`` and the overlay PNGs under
+    ``RES_MOR/PNG/overlay_{full,crop}``.  *device* is ``"cuda"`` (default;
+    raises without a card) or ``"cpu"``."""
     from ..report.excel import _write_csv
     from ..report.xlsxlite import write_xlsx
 
     dev = resolve_device(device)
-    refuse_image_outputs(cfg.save_full or cfg.save_crop)
     roi_dir = roi_dir or os.path.join(folder, "roi")
     out_root = out_root or os.path.join(folder, "RES_MOR")
+    png_full_dir = os.path.join(out_root, "PNG", "overlay_full")
+    png_crop_dir = os.path.join(out_root, "PNG", "overlay_crop")
 
     files_all = naming.list_tifs(folder)
     files, meta = [], {}
@@ -255,6 +258,10 @@ def run_morphology(
                 "channel": cfg.sel_ch,
             })
             rows.append(met)
+        if cfg.save_full or cfg.save_crop:
+            save_morphology_images(img=img, polys=polys, mets=mets, tag=tag,
+                                   cfg=cfg, png_full_dir=png_full_dir,
+                                   png_crop_dir=png_crop_dir)
 
     if not rows:
         log(t("mor_no_results"))

@@ -35,12 +35,16 @@ per-ROI statistics:
    for CPU tensors.  An ROI that needs the full frame (``tile=None``) goes
    through the same stage with the frames NaN-padded to one square tile.
 
-With ``do_tif`` the serial runner also brings each pair's ratio frame and
-rim mask to the host (page-locked staging on a card, and only then) and
+With ``do_tif`` or ``do_png`` the serial runner also brings each pair's
+ratio frame and rim mask to the host (page-locked staging on a card, and
+only then; with ``do_png`` and the annulus also the corrected numerator and
+denominator, from which each crop's ratio is rebuilt) and
 ``report.render.save_nesprin2_images`` writes the full and rim-masked
-float32 TIFFs; the batched runner hands such a config to the serial one.
-``do_png`` raises ``NotImplementedError`` before a file is read, and so
-does ``mesh=``.
+float32 TIFFs and the full, crop and intensity-crop PNGs (the intensity
+channel's frame is read only for them); the batched runner hands such a
+config to the serial one.  ``save_panel`` (with ``do_png``) raises
+``NotImplementedError`` before a file is read, naming
+``report.render.FIGURES``, and so does ``mesh=``, naming ``MULTI_DEVICE``.
 """
 
 from __future__ import annotations
@@ -70,7 +74,7 @@ from ..ops.ratio import clip_ratio_to_nan, ratio_with_eps, spectral_correct
 from ..ops.roistats import choose_tile, pad_local_polys, tile_offsets
 from ..ops.stats import STAT_FIELDS
 from ..parallel import runner
-from ..report.render import refuse_image_outputs, save_nesprin2_images
+from ..report.render import FIGURES, save_nesprin2_images
 from .intensity import PinnedPool, _bucket, frames_on_host, to_device
 
 t = i18n.t
@@ -449,26 +453,35 @@ def unpack_n2_flat(flat: np.ndarray, nb: int):
     return {n: cols[:, k] for k, n in enumerate(_N2_FIELDS)}, flat[:, -1]
 
 
+def _swap_read(dpath: str, apath: str, ch: int) -> Optional[np.ndarray]:
+    """Channel *ch*'s frame (float32) under the donor's file name, else
+    under the acceptor's; None when neither exists."""
+    cand = naming.swap_channel_in_name(dpath, ch)
+    if not os.path.exists(cand):
+        cand = naming.swap_channel_in_name(apath, ch)
+    return tiffio.read_2d(cand) if os.path.exists(cand) else None
+
+
 def load_pair_nesprin2(key, dpath, apath, roi_dir, cfg: Nesprin2Config):
     """Host side of one pair: donor and FRET frames (the file's dtype
-    kept), the optional acceptor-only frame through the swap-channel
-    fallback chain (:1424-1437) and the ROIs.  Returns (D, A, Aonly or
-    None, polys or None).  The intensity-channel frame feeds only the image
-    outputs and is not read."""
+    kept), the intensity-channel frame I, the optional acceptor-only frame
+    -- both through the swap-channel fallback chain (:1424-1437), I falling
+    back to the donor frame as float32 -- and the ROIs.  Returns (D, A, I,
+    Aonly, polys), each of the last three possibly None.  I feeds only the
+    PNGs: it is read only with ``cfg.do_png`` (None otherwise)."""
     D = tiffio.read_2d(dpath, dtype=None)
     A = tiffio.read_2d(apath, dtype=None)
-    Aonly = None
-    if cfg.aonly_ch is not None:
-        cand = naming.swap_channel_in_name(dpath, cfg.aonly_ch)
-        if not os.path.exists(cand):
-            cand = naming.swap_channel_in_name(apath, cfg.aonly_ch)
-        if os.path.exists(cand):
-            Aonly = tiffio.read_2d(cand)
+    I = None
+    if cfg.do_png:
+        I = _swap_read(dpath, apath, cfg.intensity_ch)
+        if I is None:
+            I = D.astype(np.float32)
+    Aonly = _swap_read(dpath, apath, cfg.aonly_ch) if cfg.aonly_ch is not None else None
     base = naming.find_roi_basepath(roi_dir, os.path.basename(dpath),
                                     cfg.timelapse, cfg.grammar, exts=(".json",))
     polys = (roiio.load_roi_polygons(base + ".json")
              if os.path.exists(base + ".json") else None)
-    return D, A, Aonly, polys
+    return D, A, I, Aonly, polys
 
 
 def _tile_margin(cfg: Nesprin2Config) -> int:
@@ -480,13 +493,14 @@ def process_pair_nesprin2(key, dpath, apath, roi_dir, cfg: Nesprin2Config,
                           staging: Optional[PinnedPool] = None) -> List[dict]:
     """One (stage, time) pair synchronously -> its per-ROI rows: one copy
     brings the flat table array back.  With a *staging* pool the uploads
-    go through page-locked buffers.  With ``cfg.do_tif`` the ratio frame
-    and the rim mask come back too and the TIFFs go to *dirs*
-    (:func:`nesprin2_dirs`)."""
+    go through page-locked buffers.  With ``cfg.do_tif`` or ``cfg.do_png``
+    the ratio frame and the rim mask come back too (and, for the PNG crops
+    with the annulus, the corrected numerator and denominator) and the
+    images go to *dirs* (:func:`nesprin2_dirs`)."""
     dev = resolve_device(device)
     s, t_code = key
     tag = f"{s}_{t_code}" if (cfg.timelapse and t_code is not None) else s
-    D, A, Aonly, polys = loaded if loaded is not None else \
+    D, A, I, Aonly, polys = loaded if loaded is not None else \
         load_pair_nesprin2(key, dpath, apath, roi_dir, cfg)
     H, W = D.shape
     if not polys:
@@ -528,11 +542,19 @@ def process_pair_nesprin2(key, dpath, apath, roi_dir, cfg: Nesprin2Config,
     cols, eps_arr = unpack_n2_flat(flat, nb)
     flip = cfg.ratio_mode != "FRET/Donor"
     d_p, a_p = _channel_ps(cfg)
-    if cfg.do_tif:
-        # the ratio frame and the rim leave the device only for the TIFFs
-        with frames_on_host([out[8], out[10]], dev, staging) as (R_np, rim_np):
-            save_nesprin2_images(tag, "DoverF" if flip else "FoverD", R_np,
-                                 rim_np, cfg, dirs)
+    if cfg.do_tif or cfg.do_png:
+        # the ratio frame and the rim leave the device only for the images,
+        # the corrected frames only for the annulus crops' re-ratio
+        ann = cfg.do_png and cfg.save_crop and _ann_active(cfg)
+        numer, denom = (out[12], out[13]) if flip else (out[13], out[12])
+        with frames_on_host([out[8], out[10], numer if ann else None,
+                             denom if ann else None], dev, staging) as host:
+            R_np, rim_np, numer_np, denom_np = host
+            save_nesprin2_images(
+                tag, "DoverF" if flip else "FoverD", R_np, rim_np, I, polys, cfg,
+                dirs, float(eps_arr[0]),
+                ann_bgs=(cols["bg_n"][0], cols["bg_d"][0]) if ann else None,
+                numer=numer_np, denom=denom_np)
     return [_n2_row(s, t_code, i, lambda f, i=i: cols[f][0, i],
                     float(eps_arr[0]), cfg, flip, d_p, a_p) for i in range(n)]
 
@@ -542,7 +564,20 @@ def nesprin2_dirs(out_root: str) -> Dict[str, str]:
     return {
         "tif32_full": os.path.join(out_root, "TIF", "ratio32_full"),
         "tif32_rim": os.path.join(out_root, "TIF", "ratio32_rim"),
+        "png_full_ratio": os.path.join(out_root, "PNG", "FULL_RATIO"),
+        "png_full_int": os.path.join(out_root, "PNG", "FULL_INT"),
+        "png_panel": os.path.join(out_root, "PNG", "panel"),
+        "png_crop_ratio": os.path.join(out_root, "PNG", "CROP_RATIO"),
+        "png_crop_int_no": os.path.join(out_root, "PNG", "CROP_INT", "no_rim"),
+        "png_crop_int_r": os.path.join(out_root, "PNG", "CROP_INT", "rim"),
     }
+
+
+def _refuse_unported(cfg: Nesprin2Config) -> None:
+    """``save_panel`` is the one image output not ported."""
+    if cfg.do_png and cfg.save_panel:
+        raise NotImplementedError(
+            f"save_panel (the intensity / ratio panel) is not ported yet: {FIGURES}")
 
 
 def _n2_pairs(folder: str, cfg: Nesprin2Config, log):
@@ -623,11 +658,11 @@ def run_nesprin2_batched(
     from ..report.excel import save_nesprin2_excel
 
     dev = resolve_device(device)
-    refuse_image_outputs(cfg.do_png)
+    _refuse_unported(cfg)
     if mesh is not None:
         raise NotImplementedError(
             f"sharding over a device mesh is not ported yet: {MULTI_DEVICE}")
-    if cfg.do_tif:
+    if cfg.do_tif or cfg.do_png:
         # the image outputs are written pair by pair from full frames
         log(t("n2_images_serial"))
         return run_nesprin2(folder, cfg, out_root=out_root, log=log,
@@ -649,7 +684,7 @@ def run_nesprin2_batched(
 
     def _load(kv):
         key, dpath, apath = kv
-        D, A, Aonly, polys = load_pair_nesprin2(key, dpath, apath, roi_dir, cfg)
+        D, A, I, Aonly, polys = load_pair_nesprin2(key, dpath, apath, roi_dir, cfg)
         # pre-pad the polygon/offset arrays in the prefetch thread against
         # run-stable (tile, nb, vb) hints, so dispatch only stacks
         pre = None
@@ -671,7 +706,7 @@ def run_nesprin2_batched(
                     offs = tile_offsets(polys, H, W, t_used, margin=margin)
                     lp, off_pad, _ = pad_local_polys(polys, offs, nb_used, vb_used)
                     pre = (t_used, pv, valid, lp, off_pad)
-        return kv, (D, A, Aonly, polys), pre
+        return kv, (D, A, I, Aonly, polys), pre
 
     loader = runner.PrefetchLoader(_load, pairs, workers=max(1, prefetch_workers))
     step_cache: Dict[tuple, object] = {}
@@ -687,7 +722,7 @@ def run_nesprin2_batched(
 
     def classify(item):
         nonlocal sig
-        kv, (D, A, Aonly, polys), pre = item
+        kv, (D, A, I, Aonly, polys), pre = item
         tag = _pair_tag(kv[0])
         log(t("msg_processing").format(tag=tag))
         if not polys:
@@ -697,8 +732,8 @@ def run_nesprin2_batched(
         if sig is None and pre is not None:
             sig = key_sig
         if pre is None or key_sig != sig or pre[0] != hint.get("tile"):
-            return "serial", (kv, (D, A, Aonly, polys))
-        return "batch", (kv, (D, A, Aonly, polys), pre)
+            return "serial", (kv, (D, A, I, Aonly, polys))
+        return "batch", (kv, (D, A, I, Aonly, polys), pre)
 
     def step_for(tile):
         if tile not in step_cache:
@@ -722,7 +757,7 @@ def run_nesprin2_batched(
             # placeholder when there is no acceptor-only channel: the step
             # never reads it
             frames = [[up(loaded[k]) for _, loaded, _ in chunk]
-                      for k in ((0, 1, 2) if sig[4] else (0, 1))]
+                      for k in ((0, 1, 3) if sig[4] else (0, 1))]
             if not sig[4]:
                 frames.append(up(np.zeros((len(chunk), 1, 1), np.uint16)))
             flat = step_for(hint["tile"])(*frames, *(stacked(k) for k in (1, 2, 3, 4)))
@@ -745,7 +780,7 @@ def run_nesprin2_batched(
         except Exception as e:  # noqa: BLE001
             raise runner.EmitFetchError(str(e)) from e
         cols, eps_arr = unpack_n2_flat(flat, hint["nb"])
-        for bi, (kv, (_, _, _, polys), _) in enumerate(chunk):
+        for bi, (kv, (_, _, _, _, polys), _) in enumerate(chunk):
             s, t_code = kv[0]
             eps_f = float(eps_arr[bi])
             for i in range(len(polys)):
@@ -790,7 +825,7 @@ def run_nesprin2(
     from ..report.excel import save_nesprin2_excel
 
     dev = resolve_device(device)
-    refuse_image_outputs(cfg.do_png)
+    _refuse_unported(cfg)
     out_root = out_root or os.path.join(folder, "RES")
     dirs = nesprin2_dirs(out_root)
     roi_dir = os.path.join(folder, "roi")

@@ -1,1 +1,2 @@
-"""Tabular report writers (stdlib csv + the shared XLSX writer)."""
+"""Report writers: tables (stdlib csv + the shared XLSX writer), the deck,
+and the TIFF and PNG image outputs (PIL, no matplotlib)."""

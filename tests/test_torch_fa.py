@@ -499,7 +499,7 @@ def test_unported_parts_raise_naming_their_roadmap_item(tmp_path, what):
         with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
             tfa.run_fa_batched(*args, mesh=object(), device="cpu")
     else:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 14b"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 14d"):
             getattr(tfa, what)(*args)
 
 

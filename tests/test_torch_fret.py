@@ -33,6 +33,8 @@ from imageprocess_tpu_torch.ops import roi_stats_kernel as rsk
 from imageprocess_tpu_torch.ops.stats import STAT_FIELDS
 from imageprocess_tpu_torch.parallel import runner as port_runner
 from imageprocess_tpu_torch.pipelines import fret as tfret
+from imageprocess_tpu_torch.report import render as trender
+from test_torch_tiffout import assert_pngs_match, lut_step, png_files
 
 Q_RTOL = 1e-6
 M_RTOL = 1e-5
@@ -278,26 +280,46 @@ def test_step_on_cpu_is_the_plain_version():
     assert rsk.launches == before
 
 
+EXP_PLAN = {1: [P1, P2], 2: [P2], 3: [P1, P2, P3], 4: [P3, P1], 6: [P1]}
+
+
+def _exp_colorbar(name):
+    """The crop under the inset colorbar of an ``exp_folder`` crop PNG."""
+    if not name.startswith("PNG_RAT/crop"):
+        return None
+    stage, roi = int(name.split("/S")[1][:2]), int(name.split("_roi")[1].split("_")[0])
+    W, H = (224, 192) if stage == 4 else (192, 160)
+    x0, x1, y0, y1 = trender.crop_bbox_poly(EXP_PLAN[stage][roi - 1], W, H)
+    return x1 - x0 + 1, y1 - y0 + 1
+
+
 @pytest.mark.parametrize("kw", [{"bg_scope": "roi_union"}, {"do_png": True},
                                 {"do_tif": True}, {"bg_mode": "hist-mode"}],
                          ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
 def test_unsupported_configs_raise(exp_folder, tmp_path, kw):
-    """The PNG outputs are not ported: they raise, naming the ROADMAP
-    item, before any file is read.  The configs the batch does not cover
-    (bg_scope "roi_union", bg_mode "hist-mode", the TIFF outputs) do not
-    raise: the batched runner hands them to run_fret, as the JAX runner
-    does, and the rows are the JAX runner's."""
-    if "do_png" not in kw:
-        jrows, trows, _ = _run_both(exp_folder, tmp_path, donor_ch=1,
-                                    acceptor_ch=2, do_xls=False, **kw)
-        assert len(trows) == 9
-        _assert_rows_match(trows, jrows)
-        return
-    cfg = tfret.FretConfig(**kw)
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        tfret.run_fret_batched(str(exp_folder), cfg, out_root=str(tmp_path),
-                               device="cpu")
-    assert not (tmp_path / "xls").exists()
+    """The configs the batch does not cover (bg_scope "roi_union", bg_mode
+    "hist-mode", the TIFF and PNG outputs) do not raise: the batched runner
+    hands them to run_fret, as the JAX runner does, and the rows are the
+    JAX runner's.  The PNGs, at FretConfig's defaults (the inset colorbar
+    on every crop), are the JAX runner's without the colorbar outside the
+    colorbar's box (``assert_pngs_match``).  (The name is kept from when
+    the PNG outputs raised.)"""
+    jkw = dict(kw, show_colorbar=False) if "do_png" in kw else kw
+    jrows = jfret.run_fret_batched(
+        str(exp_folder), jfret.FretConfig(donor_ch=1, acceptor_ch=2, do_xls=False, **jkw),
+        out_root=str(tmp_path / "j"), log=lambda *_: None, batch_size=2)
+    trows = tfret.run_fret_batched(
+        str(exp_folder), tfret.FretConfig(donor_ch=1, acceptor_ch=2, do_xls=False, **kw),
+        out_root=str(tmp_path / "t"), log=lambda *_: None, batch_size=2, device="cpu")
+    assert len(trows) == 9
+    _assert_rows_match(trows, jrows)
+    if "do_png" in kw:
+        # six full ratio frames, nine crops
+        names = assert_pngs_match(tmp_path / "t", tmp_path / "j", step=lut_step("jet"),
+                                  expect=15, colorbar=_exp_colorbar)
+        assert sum(_exp_colorbar(n) is not None for n in names) == 9
+    else:
+        assert png_files(tmp_path / "t") == []
 
 
 def test_cuda_requested_without_card_raises(exp_folder, tmp_path, monkeypatch):

@@ -23,6 +23,7 @@ from imageprocess_tpu_torch.ops import roistats as port_roistats
 from imageprocess_tpu_torch.ops import tile_stats_kernel as tsk
 from imageprocess_tpu_torch.parallel import runner as port_runner
 from imageprocess_tpu_torch.pipelines import intensity as tint
+from test_torch_tiffout import assert_pngs_match, png_files
 
 RTOL = 1e-5
 P1 = np.array([[15, 15], [60, 18], [55, 70], [12, 66]], float)
@@ -123,8 +124,9 @@ def test_config_fields_and_defaults_match():
     assert list(tf) == list(jf)
     jc, tc = jint.IntensityConfig(), tint.IntensityConfig()
     for name in jf:
-        if name in ("png_full", "png_crop"):   # image outputs: not ported
-            assert getattr(tc, name) is None
+        if name in ("png_full", "png_crop"):   # a PanelPngOptions() each
+            assert dataclasses.astuple(getattr(tc, name)) == \
+                dataclasses.astuple(getattr(jc, name))
             continue
         assert getattr(tc, name) == getattr(jc, name), name
     assert tc.grammar.value == jc.grammar.value
@@ -299,30 +301,28 @@ def test_decode_then_gather_path_matches_fused(timelapse_folder, tmp_path,
                                 {"do_tif": True}, {"save_raw_crop_tif": True}],
                          ids=lambda kw: next(iter(kw)))
 def test_unsupported_configs_raise(timelapse_folder, tmp_path, kw):
-    """The PNG outputs are not ported: they raise, naming the ROADMAP
-    item, before any file is read.  A bg_scope other than "full" and the
-    TIFF outputs do not raise: the batched runner hands the run to
-    run_intensity, as the JAX runner does, and the rows are the JAX
-    runner's.  ``save_raw_crop_tif`` alone (it belongs to the PNG crops)
-    runs the batched path and writes no image."""
-    if "do_png" not in kw:
-        jrows, trows, logs = _run_both(timelapse_folder, tmp_path, channels=(1, 2),
-                                       timelapse=True, do_xls=False, **kw)
-        assert len(trows) == 16
-        handed_over = "save_raw_crop_tif" not in kw
-        assert (logs[0] == tint.t("int_images_serial")) == handed_over
-        _assert_rows_match(trows, jrows)
-        tiffs = {side: sorted(os.path.relpath(os.path.join(d, f), tmp_path / side)
-                              for d, _, fs in os.walk(tmp_path / side) for f in fs
-                              if f.endswith(".tif")) for side in "tj"}
-        assert tiffs["t"] == tiffs["j"]
-        assert bool(tiffs["t"]) == ("do_tif" in kw)
-        return
-    cfg = tint.IntensityConfig(channels=(1, 2), timelapse=True, **kw)
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        tint.run_intensity_batched(str(timelapse_folder), cfg,
-                                   out_root=str(tmp_path), device="cpu")
-    assert not (tmp_path / "xls").exists()
+    """The configs the batch does not cover do not raise: a bg_scope other
+    than "full" and the image outputs (TIFF and PNG) hand the run to
+    run_intensity, as the JAX runner does, and the rows and files are the
+    JAX runner's.  ``save_raw_crop_tif`` alone (it belongs to the PNG
+    crops) runs the batched path and writes no image.  (The name is kept
+    from when the PNG outputs raised.)"""
+    jrows, trows, logs = _run_both(timelapse_folder, tmp_path, channels=(1, 2),
+                                   timelapse=True, do_xls=False, **kw)
+    assert len(trows) == 16
+    handed_over = "save_raw_crop_tif" not in kw
+    assert (logs[0] == tint.t("int_images_serial")) == handed_over
+    _assert_rows_match(trows, jrows)
+    tiffs = {side: sorted(os.path.relpath(os.path.join(d, f), tmp_path / side)
+                          for d, _, fs in os.walk(tmp_path / side) for f in fs
+                          if f.endswith(".tif")) for side in "tj"}
+    assert tiffs["t"] == tiffs["j"]
+    assert bool(tiffs["t"]) == ("do_tif" in kw)
+    if "do_png" in kw:
+        # 8 timepoints x channels 1, 2 x (the frame and two ROI crops)
+        assert_pngs_match(tmp_path / "t", tmp_path / "j", expect=48)
+    else:
+        assert png_files(tmp_path / "t") == []
 
 
 def test_cuda_requested_without_card_raises(timelapse_folder, tmp_path,

@@ -36,6 +36,7 @@ from imageprocess_tpu_torch.ops import roi_stats_kernel as rsk
 from imageprocess_tpu_torch.ops import tile_stats_kernel as tsk
 from imageprocess_tpu_torch.pipelines import morphology as tm
 from imageprocess_tpu_torch.report import xlsxlite
+from test_torch_tiffout import assert_pngs_match
 
 H, W = 160, 224
 RTOL = 1e-5
@@ -283,12 +284,24 @@ def test_no_results_and_empty_folder(tmp_path, mor_ds):
 
 @pytest.mark.parametrize("kw", [{}, {"save_crop": False}, {"save_full": False}],
                          ids=["defaults", "save_full", "save_crop"])
-def test_image_outputs_raise_before_reading(tmp_path, kw):
-    """MorConfig's image defaults ask for the overlays, which are not
-    ported: the run refuses at entry, naming the ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        tm.run_morphology(str(tmp_path / "no-such-folder"), tm.MorConfig(**kw),
-                          device="cpu")
+def test_image_outputs_raise_before_reading(mor_ds, tmp_path, kw):
+    """MorConfig's image defaults: the overlay of each frame and the titled
+    crop of each ROI (the degenerate ROI of S02 too), the same files as the
+    JAX runner's, byte for byte; the rows are the tables-only rows.  (The
+    name is kept from when the overlays raised.)"""
+    trows = tm.run_morphology(str(mor_ds), tm.MorConfig(sel_ch=2, do_xls=False, **kw),
+                              out_root=str(tmp_path / "t"), log=lambda *_: None,
+                              device="cpu")
+    jm.run_morphology(str(mor_ds), jm.MorConfig(sel_ch=2, do_xls=False, **kw),
+                      out_root=str(tmp_path / "j"), log=lambda *_: None)
+    names = assert_pngs_match(tmp_path / "t", tmp_path / "j", frac=0.0,
+                              expect=2 * kw.get("save_full", True) + 6 * kw.get("save_crop", True))
+    for name in names:
+        assert (tmp_path / "t" / name).read_bytes() == (tmp_path / "j" / name).read_bytes()
+    tables = tm.run_morphology(str(mor_ds), tm.MorConfig(sel_ch=2, do_xls=False,
+                                                         save_full=False, save_crop=False),
+                               log=lambda *_: None, device="cpu")
+    _assert_metric_rows_match(trows, tables)
 
 
 def test_runner_defaults_to_the_card(mor_ds, monkeypatch):

@@ -35,7 +35,9 @@ from imageprocess_tpu.ops import roistats as jrs
 from imageprocess_tpu.pipelines import nesprin2 as jn
 from imageprocess_tpu_torch.ops import roi_stats_kernel as rsk
 from imageprocess_tpu_torch.pipelines import nesprin2 as tn
+from imageprocess_tpu_torch.report import render as trender
 from imageprocess_tpu_torch.report import xlsxlite
+from test_torch_tiffout import assert_pngs_match, lut_step
 
 H, W = 160, 224
 M_RTOL = 1e-5
@@ -47,6 +49,9 @@ POLYS = [np.array([[20.5, 20.5], [70.5, 25.5], [65.5, 80.5], [15.5, 75.5]], np.f
          np.array([[150.3, 100.7], [223.9, 104.1], [223.2, 159.4], [160.4, 150.8]],
                   np.float32),
          np.array([[30.2, 100.7], [80.9, 102.1], [54.4, 140.8]], np.float32)]
+# n2_ds's ROI files: S04's frame is (W, H) and its first ROI covers it
+N2_FULL = np.array([[-3, -3], [H + 3, -3], [H + 3, W + 3], [-3, W + 3]], float)
+N2_ROIS = {1: POLYS, 2: POLYS[:3], 4: [N2_FULL, POLYS[0]]}
 NB, VB = 8, 32
 
 CONFIGS = {
@@ -309,8 +314,7 @@ def n2_ds(tmp_path_factory):
         shape = (W, H) if s == 4 else (H, W)
         for ch in (1, 2, 4):
             jtiffio.write_tiff16(str(folder / f"S{s:02d}_{ch}.TIF"), _frame(rng, shape))
-    full = np.array([[-3, -3], [H + 3, -3], [H + 3, W + 3], [-3, W + 3]], float)
-    for s, rois in ((1, POLYS), (2, POLYS[:3]), (4, [full, POLYS[0]])):
+    for s, rois in N2_ROIS.items():
         jroiio.save_roi_bundle(str(folder / "roi" / f"S{s:02d}.json"), f"S{s:02d}",
                                (W, H) if s == 4 else (H, W), rois)
     return folder
@@ -475,27 +479,34 @@ def test_batched_rows_equal_serial_rows(n2_ds, serial_rows, name, batch_size):
 
 
 def test_load_pair_fallback_chain_matches_jax(tmp_path):
-    """The acceptor-only frame is looked up under the donor's name, then
-    under the acceptor's; a missing one gives None; frames keep their
-    dtype."""
+    """The acceptor-only and intensity frames are looked up under the
+    donor's name, then under the acceptor's; a missing acceptor-only frame
+    gives None, a missing intensity frame the donor's as float32; frames
+    keep their dtype.  The intensity frame feeds only the PNGs: without
+    ``do_png`` it is not read (JAX's ``need_intensity=False``)."""
     rng = np.random.default_rng(2)
-    for name in ("S01_1.TIF", "S01-c2.TIF", "S01-4.TIF", "S02_1.TIF", "S02_2.TIF"):
+    for name in ("S01_1.TIF", "S01-c2.TIF", "S01-4.TIF", "S01-3.TIF", "S02_1.TIF",
+                 "S02_2.TIF"):
         jtiffio.write_tiff16(str(tmp_path / name), _frame(rng, (60, 70)))
     jroiio.save_roi_bundle(str(tmp_path / "roi" / "S01.json"), "S01", (60, 70),
                            [POLYS[3] / 4])
     for s, apath in (("S01", "S01-c2.TIF"), ("S02", "S02_2.TIF")):
         args = ((s, None), str(tmp_path / f"{s}_1.TIF"), str(tmp_path / apath),
                 str(tmp_path / "roi"))
-        got = tn.load_pair_nesprin2(*args, tn.Nesprin2Config(aonly_ch=4))
-        want = jn.load_pair_nesprin2(*args, jn.Nesprin2Config(aonly_ch=4),
-                                     need_intensity=False)
-        assert len(got) == 4 and want[2] is None    # JAX's intensity-frame slot
-        for g, w in zip(got[:3], want[:2] + want[3:4]):
-            assert (g is None) == (w is None)
-            if w is not None:
-                assert g.dtype == w.dtype and np.array_equal(g, w)
-        assert (got[3] is None) == (want[4] is None) == (s == "S02")
-        assert (got[2] is None) == (s == "S02")
+        for png in (False, True):
+            got = tn.load_pair_nesprin2(*args, tn.Nesprin2Config(aonly_ch=4, do_png=png))
+            want = jn.load_pair_nesprin2(*args, jn.Nesprin2Config(aonly_ch=4),
+                                         need_intensity=png)
+            assert len(got) == len(want) == 5
+            for g, w in zip(got[:4], want[:4]):
+                assert (g is None) == (w is None)
+                if w is not None:
+                    assert g.dtype == w.dtype and np.array_equal(g, w)
+            assert (got[4] is None) == (want[4] is None) == (s == "S02")
+            assert (got[3] is None) == (s == "S02") and (got[2] is None) == (not png)
+            if png:   # S02 has no channel 3: the donor frame stands in
+                assert got[2].dtype == np.float32 and \
+                    np.array_equal(got[2], got[0].astype(np.float32)) == (s == "S02")
 
 
 def test_no_pairs_and_cancel(n2_ds, tmp_path):
@@ -515,22 +526,64 @@ def test_no_pairs_and_cancel(n2_ds, tmp_path):
         assert len(rows) in (0, 4) and any("CANCEL" in str(x).upper() or "취소" in str(x) for x in logs)
 
 
+def _n2_colorbar(name):
+    """The crop under the inset colorbar of an ``n2_ds`` ratio crop PNG."""
+    if not name.startswith("PNG/CROP_RATIO"):
+        return None
+    stage, roi = int(name.split("/S")[1][:2]), int(name.split("_roi")[1].split("_")[0])
+    fw, fh = (H, W) if stage == 4 else (W, H)
+    x0, x1, y0, y1 = trender.crop_bbox_poly(N2_ROIS[stage][roi - 1], fw, fh)
+    return x1 - x0 + 1, y1 - y0 + 1
+
+
 @pytest.mark.parametrize("runner", ["run_nesprin2", "run_nesprin2_batched"])
 @pytest.mark.parametrize("out", ["do_tif", "do_png"])
-def test_image_outputs_raise_before_reading(tmp_path, runner, out):
-    """PNG outputs raise, naming their ROADMAP item, before a file is read;
-    the TIFF outputs are ported: an empty folder gives no rows."""
+def test_image_outputs_raise_before_reading(n2_ds, tmp_path, runner, out):
+    """An empty folder gives no rows and no error.  ``do_png`` writes the
+    JAX runner's PNGs (full ratio and intensity frames, the rim-masked
+    ratio crops with their inset colorbar, the intensity crops): the
+    serial runner with the annulus and QC (each crop's ratio rebuilt from
+    the corrected frames) and the intensity frame of channel 4; the
+    batched one, which hands the run to the serial one, with a scalebar
+    and an intensity channel that has no file (the donor frame stands in).
+    The JAX runs draw no colorbar (``assert_pngs_match``).  (The name is
+    kept from when ``do_png`` raised.)"""
     missing = str(tmp_path / "no-such-folder")
-
-    def run():
-        return getattr(tn, runner)(missing, tn.Nesprin2Config(**{out: True}),
-                                   log=lambda *_: None, device="cpu")
-
+    assert getattr(tn, runner)(missing, tn.Nesprin2Config(**{out: True}),
+                               log=lambda *_: None, device="cpu") == []
     if out == "do_tif":
-        assert run() == []
         return
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14b"):
-        run()
+    kw = (dict(CONFIGS["qc-annulus"], intensity_ch=4) if runner == "run_nesprin2"
+          else dict(CONFIGS["default"], intensity_ch=3, add_scalebar=True))
+    kw.update(donor_ch=1, fret_ch=2, do_png=True, do_xls=False)
+    trows = getattr(tn, runner)(str(n2_ds), tn.Nesprin2Config(**kw),
+                                out_root=str(tmp_path / "t"), log=lambda *_: None,
+                                device="cpu")
+    jrows = jn.run_nesprin2(str(n2_ds), jn.Nesprin2Config(**kw, show_colorbar=False),
+                            out_root=str(tmp_path / "j"), log=lambda *_: None)
+    assert len(trows) == len(jrows) == 9
+    # per pair with ROIs: two full frames, and per ROI the ratio crop and
+    # two intensity crops
+    names = assert_pngs_match(tmp_path / "t", tmp_path / "j",
+                              step=lut_step("turbo", "gray"), expect=3 * 2 + 9 * 3,
+                              colorbar=_n2_colorbar)
+    assert sum(_n2_colorbar(n) is not None for n in names) == 9
+
+
+def test_save_panel_raises_naming_item_14d(n2_ds, tmp_path):
+    """The intensity / ratio panel is laid out by matplotlib: with
+    ``do_png`` both runners refuse it before a file is read or written."""
+    for runner in (tn.run_nesprin2, tn.run_nesprin2_batched):
+        with pytest.raises(NotImplementedError, match="item 14d"):
+            runner(str(n2_ds), tn.Nesprin2Config(donor_ch=1, fret_ch=2, do_png=True,
+                                                 save_panel=True),
+                   out_root=str(tmp_path / "o"), log=lambda *_: None, device="cpu")
+        assert not (tmp_path / "o").exists()
+    # without do_png the panel is never drawn, in JAX too
+    rows = tn.run_nesprin2(str(n2_ds), tn.Nesprin2Config(donor_ch=1, fret_ch=2, do_xls=False,
+                                                         save_panel=True),
+                           log=lambda *_: None, device="cpu")
+    assert len(rows) == 9
 
 
 def test_mesh_raises_naming_its_roadmap_item(n2_ds):

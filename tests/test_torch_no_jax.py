@@ -75,6 +75,9 @@ def test_main_path_import_pulls_in_no_jax_pil_pandas():
         "import imageprocess_tpu_torch.morphology.contours\n"
         "import imageprocess_tpu_torch.report.pptxlite\n"
         "import imageprocess_tpu_torch.pipelines.fretppt\n"
+        "import imageprocess_tpu_torch.pipelines.crop\n"
+        "import imageprocess_tpu_torch.pipelines.morphology\n"
+        "import imageprocess_tpu_torch.report.cmaps\n"
         "import chip_smoke\n"
         "mods = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'PIL', 'pandas', 'matplotlib', 'h5py', "
@@ -85,6 +88,49 @@ def test_main_path_import_pulls_in_no_jax_pil_pandas():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+
+
+def test_png_outputs_and_the_cropper_run_without_matplotlib(tmp_path):
+    """A process in which ``import matplotlib`` fails runs every PNG output
+    -- intensity, FRET and rim FRET with ``do_png`` at their defaults (the
+    inset colorbar included), morphology's overlays, the cropper -- and
+    holds no module of matplotlib, jax or the JAX package afterwards."""
+    code = (
+        "import json, os, sys\n"
+        "sys.modules['matplotlib'] = None   # any import of it fails\n"
+        "import numpy as np\n"
+        "from imageprocess_tpu_torch.core import roiio, tiffio\n"
+        "from imageprocess_tpu_torch.pipelines import crop, fret, intensity, morphology, nesprin2\n"
+        f"d = {str(tmp_path)!r}\n"
+        "rng = np.random.default_rng(0)\n"
+        "for ch in (1, 2):\n"
+        "    tiffio.write_tiff16(os.path.join(d, f'S01_{ch}.TIF'),\n"
+        "                        rng.integers(10, 3000, (96, 128)).astype(np.uint16))\n"
+        "P = np.array([[10.5, 12.5], [60.5, 15.5], [55.5, 70.5], [8.5, 66.5]])\n"
+        "roiio.save_roi_bundle(os.path.join(d, 'roi', 'S01.json'), 'S01', (96, 128), [P])\n"
+        "q = dict(log=lambda *_: None, device='cpu')\n"
+        "intensity.run_intensity(d, intensity.IntensityConfig(channels=(1, 2), do_png=True,\n"
+        "    save_raw_crop_tif=True), out_root=os.path.join(d, 'i'), **q)\n"
+        "fret.run_fret(d, fret.FretConfig(donor_ch=1, acceptor_ch=2, do_png=True),\n"
+        "    out_root=os.path.join(d, 'f'), **q)\n"
+        "nesprin2.run_nesprin2(d, nesprin2.Nesprin2Config(donor_ch=1, fret_ch=2, do_png=True,\n"
+        "    annulus_on=True), out_root=os.path.join(d, 'n'), **q)\n"
+        "morphology.run_morphology(d, morphology.MorConfig(sel_ch=2),\n"
+        "    out_root=os.path.join(d, 'm'), **q)\n"
+        "crop.run_crop(d, os.path.join(d, 'roi'), os.path.join(d, 'c'),\n"
+        "    crop.CropConfig(channel=2, save_tiff16=True), **q)\n"
+        "pngs = {k: sum(f.endswith('.png') for _, _, fs in os.walk(os.path.join(d, k))\n"
+        "               for f in fs) for k in 'ifnmc'}\n"
+        "mods = [m for m, mod in sys.modules.items() if mod is not None and\n"
+        "        m.split('.')[0] in ('matplotlib', 'jax', 'jaxlib', 'imageprocess_tpu')]\n"
+        "print(json.dumps([pngs, mods]))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    pngs, mods = json.loads(res.stdout.strip().splitlines()[-1])
+    assert mods == []
+    assert pngs == {"i": 4, "f": 2, "n": 5, "m": 2, "c": 1}
 
 
 # string constants that name the JAX package as a path: "imageprocess_tpu"

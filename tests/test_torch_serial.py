@@ -43,7 +43,9 @@ from imageprocess_tpu_torch.core import tiffio as ttiffio
 from imageprocess_tpu_torch.ops import roi_stats_kernel as rsk
 from imageprocess_tpu_torch.pipelines import fret as tfret
 from imageprocess_tpu_torch.pipelines import intensity as tint
+from imageprocess_tpu_torch.report import render as trender
 from imageprocess_tpu_torch.report import xlsxlite
+from test_torch_tiffout import assert_pngs_match, lut_step
 
 STEP_H, STEP_W = 70, 90
 STEP_POLYS = [np.array([[5.5, 6.5], [40.5, 8.5], [36.5, 44.5], [4.5, 40.5]], np.float32),
@@ -356,6 +358,7 @@ def test_runlog_matches_jax(tmp_path, monkeypatch):
 PA = np.array([[20, 20], [70, 25], [65, 80], [15, 75]], float)
 PB = np.array([[90, 60], [140, 65], [135, 110], [85, 105]], float)
 H, W = 120, 160
+FULL_ROI = np.array([[-4, -4], [W + 4, -4], [W + 4, H + 4], [-4, H + 4]], float)
 DATA_MAX = 4096.0          # every test frame's values lie below it
 MOMENTS = ("_mean", "_std", "_vsum")
 INTERP = ("_median", "_p5", "_p95", "_bg")
@@ -449,10 +452,9 @@ def mixed_ds(tmp_path_factory):
     folder = tmp_path_factory.mktemp("serial_mixed")
     (folder / "roi").mkdir()
     rng = np.random.default_rng(1)
-    full = np.array([[-4, -4], [W + 4, -4], [W + 4, H + 4], [-4, H + 4]], float)
     plan = {1: ("u16", [PA, PB]), 2: ("u16", "png"), 3: ("u16", None),
             4: ("u8", [PB]), 5: ("f32", [PA, PB]), 6: ("rgb", [PA]),
-            7: ("u16", [full, PA]), 8: ("u16w", [PA])}
+            7: ("u16", [FULL_ROI, PA]), 8: ("u16w", [PA])}
     for s, (kind, rois) in plan.items():
         shape = (W, H) if kind == "u16w" else (H, W)
         for ch in (1, 2):
@@ -615,26 +617,87 @@ def test_run_fret_subset_and_cancel(timelapse_ds, tmp_path):
     assert len(trows) == 2
 
 
+MIXED_ROIS = {1: [PA, PB], 4: [PB], 5: [PA, PB], 6: [PA], 7: [FULL_ROI, PA], 8: [PA]}
+
+
+def _mixed_dims(stage: int):
+    """(width, height) of stage *stage*'s frames in ``mixed_ds``."""
+    return (H, W) if stage == 8 else (W, H)
+
+
+def _mixed_colorbar(name):
+    """The image under the inset colorbar of a PNG of the ``do_png`` runs
+    below: the whole frame of an intensity ``PNG/full`` file, the crop of
+    a FRET ``PNG_RAT/crop`` file; None for the others."""
+    base = os.path.basename(name)
+    stage = int(base[1:3])
+    fw, fh = _mixed_dims(stage)
+    if name.startswith("PNG/full"):
+        return fw, fh
+    if not name.startswith("PNG_RAT/crop"):
+        return None
+    roi = int(base.split("_roi")[1].split("_")[0])
+    x0, x1, y0, y1 = trender.crop_bbox_poly(MIXED_ROIS[stage][roi - 1], fw, fh)
+    return x1 - x0 + 1, y1 - y0 + 1
+
+
+def _png_options(render, colorbar):
+    return dict(
+        png_full=render.PanelPngOptions(cmap_on=True, cmap="viridis", colorbar=colorbar,
+                                        mask_outside=True, scalebar_um=10.0,
+                                        sb_anchor="tl"),
+        png_crop=render.PanelPngOptions(mask_outside=True, scalebar_um=5.0, sb_font=8))
+
+
 @pytest.mark.parametrize("runner", ["intensity", "fret"])
 @pytest.mark.parametrize("out", ["do_tif", "do_png"])
-def test_image_outputs_raise_before_reading(tmp_path, runner, out):
-    """The PNG outputs are not ported: both serial runners refuse them at
-    entry, naming the ROADMAP item, before any file is read.  The TIFF
-    outputs are: an empty folder gives no rows and no error."""
+def test_image_outputs_raise_before_reading(mixed_ds, tmp_path, runner, out):
+    """An empty folder gives no rows and no error.  ``do_png`` on the mixed
+    keys (8-bit, float32 with NaN, RGB, a PNG mask, a full-frame ROI,
+    another frame shape) writes the JAX runner's PNGs: intensity with a
+    colour ramp, masks, scalebars, the inset colorbar on the full frames
+    and the raw-value crop TIFFs; FRET at its defaults (the colorbar on
+    every crop) with a scalebar.  (The name is kept from when ``do_png``
+    raised.)"""
+    from imageprocess_tpu.report import render as jrender
+
     missing = str(tmp_path / "no-such-folder")
-
-    def run():
-        if runner == "intensity":
-            return tint.run_intensity(missing, tint.IntensityConfig(**{out: True}),
-                                      log=lambda *_: None, device="cpu")
-        return tfret.run_fret(missing, tfret.FretConfig(**{out: True}),
-                              log=lambda *_: None, device="cpu")
-
+    if runner == "intensity":
+        assert tint.run_intensity(missing, tint.IntensityConfig(**{out: True}),
+                                  log=lambda *_: None, device="cpu") == []
+    else:
+        assert tfret.run_fret(missing, tfret.FretConfig(**{out: True}),
+                              log=lambda *_: None, device="cpu") == []
     if out == "do_tif":
-        assert run() == []
         return
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        run()
+    if runner == "intensity":
+        kw = dict(channels=(1, 2), do_png=True, save_raw_crop_tif=True, do_xls=False,
+                  channel_colors={1: "Cyan"})
+        tint.run_intensity(str(mixed_ds), tint.IntensityConfig(
+            **kw, **_png_options(trender, True)), out_root=str(tmp_path / "t"),
+            log=lambda *_: None, device="cpu")
+        jint.run_intensity(str(mixed_ds), jint.IntensityConfig(
+            **kw, **_png_options(jrender, False)), out_root=str(tmp_path / "j"),
+            log=lambda *_: None)
+        step, expect = lut_step("viridis", "gray", trender.get_cmap_for_color("Cyan")), 34
+    else:
+        kw = dict(donor_ch=1, acceptor_ch=2, do_png=True, add_scalebar=True, do_xls=False)
+        tfret.run_fret(str(mixed_ds), tfret.FretConfig(**kw), out_root=str(tmp_path / "t"),
+                       log=lambda *_: None, device="cpu")
+        jfret.run_fret(str(mixed_ds), jfret.FretConfig(**kw, show_colorbar=False),
+                       out_root=str(tmp_path / "j"), log=lambda *_: None)
+        step, expect = lut_step("jet", "gray"), 17
+    names = assert_pngs_match(tmp_path / "t", tmp_path / "j", step=step, expect=expect,
+                              colorbar=_mixed_colorbar)
+    assert sum(_mixed_colorbar(n) is not None for n in names) == \
+        (14 if runner == "intensity" else 9)
+    tiffs = {side: sorted(os.path.relpath(os.path.join(d, f), tmp_path / side)
+                          for d, _, fs in os.walk(tmp_path / side) for f in fs
+                          if f.endswith(".tif")) for side in "tj"}
+    assert tiffs["t"] == tiffs["j"] and len(tiffs["t"]) == (18 if runner == "intensity" else 0)
+    for name in tiffs["t"]:
+        a, b = (ttiffio.read_2d(str(tmp_path / side / name), dtype=None) for side in "tj")
+        assert a.dtype == b.dtype == np.float32 and np.array_equal(a, b, equal_nan=True)
 
 
 def test_serial_runners_default_to_the_card(timelapse_ds, monkeypatch):

@@ -5,8 +5,10 @@ pixel, plus 1e-6 of the frame's largest magnitude: a corrected pixel near
 zero carries the background's last float32 ulps, see test_torch_serial.py)
 with NaN in the same places, the 16-bit previews within one count, and the
 rows equal to the tables-only run's.  The batched runners hand such a run
-to the serial runner; ``do_png`` still raises; ``save_raw_crop_tif`` alone
-writes nothing; a tables-only run copies no frame back."""
+to the serial runner; ``save_raw_crop_tif`` alone writes nothing; a
+tables-only run copies no frame back.  With ``do_png`` the PNG outputs
+come too, held to JAX's by ``assert_pngs_match`` (its helpers are imported
+by the other runner tests)."""
 
 import os
 
@@ -22,6 +24,9 @@ from imageprocess_tpu.pipelines import nesprin2 as jn2
 from imageprocess_tpu_torch.pipelines import fret as tfret
 from imageprocess_tpu_torch.pipelines import intensity as tint
 from imageprocess_tpu_torch.pipelines import nesprin2 as tn2
+from imageprocess_tpu_torch.report import cmaps
+from imageprocess_tpu_torch.report import pilcomp as tpil
+from imageprocess_tpu_torch.report import render
 
 H, W = 96, 128
 POLYS = [np.array([[10.5, 12.5], [60.5, 15.5], [55.5, 70.5], [8.5, 66.5]]),
@@ -228,11 +233,56 @@ RUNNERS = ["run_intensity", "run_intensity_batched", "run_fret", "run_fret_batch
            "run_nesprin2", "run_nesprin2_batched"]
 
 
+ROIS = {"S01": POLYS, "S02": POLYS[:1]}
+
+
+def _jax_run(kind, folder, out, **kw):
+    """The JAX package's serial runner of workload *kind* (its batched
+    runner hands an image run to it, as the port's does)."""
+    if kind == "intensity":
+        jint.run_intensity(str(folder), jint.IntensityConfig(channels=(1, 2), **kw),
+                           out_root=str(out), **QUIET)
+    elif kind == "fret":
+        jfret.run_fret(str(folder), jfret.FretConfig(donor_ch=1, acceptor_ch=2, **kw),
+                       out_root=str(out), **QUIET)
+    else:
+        jn2.run_nesprin2(str(folder), jn2.Nesprin2Config(**N2, **kw),
+                         out_root=str(out), **QUIET)
+
+
+def _crop_colorbar(name):
+    """The crop under the inset colorbar of a FRET or rim-FRET crop PNG of
+    *ds* (``PNG_RAT/crop/S01_roi2_FoverD.png``,
+    ``PNG/CROP_RATIO/S01_roi1_FoverD_rim.png``); None for the others."""
+    if "PNG_RAT/crop" not in name and "CROP_RATIO" not in name:
+        return None
+    base = os.path.basename(name)
+    roi = int(base.split("_roi")[1].split("_")[0])
+    return crop_dims(ROIS[base[:3]][roi - 1], W, H)
+
+
 @pytest.mark.parametrize("runner", RUNNERS)
 def test_do_png_still_raises(ds, tmp_path, runner):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14b"):
-        _run(runner, ds, tmp_path / "o", do_png=True, do_tif=True)
-    assert not (tmp_path / "o").exists()
+    """``do_png`` with ``do_tif``, each runner at its PNG defaults (the FRET
+    and rim-FRET crops with their inset colorbar, 500-px crops at dpi
+    300): the JAX serial runner's files -- the TIFFs to the bars above, the
+    PNGs to ``assert_pngs_match``'s -- and the rows of the tables-only run.
+    (The name is kept from when the option raised.)"""
+    rows, _ = _run(runner, ds, tmp_path / "t", do_png=True, do_tif=True)
+    kind = runner.split("_")[1]
+    _jax_run(kind, ds, tmp_path / "j", do_png=True, do_tif=True,
+             **({} if kind == "intensity" else {"show_colorbar": False}))
+    cmap = {"intensity": "gray", "fret": "jet", "nesprin2": "turbo"}[kind]
+    names = assert_pngs_match(
+        tmp_path / "t", tmp_path / "j", step=lut_step(cmap, "gray"),
+        expect={"intensity": 14, "fret": 7, "nesprin2": 13}[kind],
+        colorbar=None if kind == "intensity" else _crop_colorbar)
+    assert sum(_crop_colorbar(n) is not None for n in names) == \
+        {"intensity": 0, "fret": 3, "nesprin2": 3}[kind]
+    _assert_tiffs_match(tmp_path / "t", tmp_path / "j",
+                        {"intensity": 12, "fret": 12, "nesprin2": 4}[kind])
+    tables, _ = _run(runner, ds, tmp_path / "tables")
+    _rows_equal(rows, tables)
 
 
 @pytest.mark.parametrize("runner", ["run_intensity", "run_intensity_batched"])
@@ -265,3 +315,71 @@ def test_frames_come_back_only_for_the_tiffs(ds, tmp_path, monkeypatch, runner):
     per = {"intensity": [(2, H, W)] * 3, "fret": [(H, W)] * 6,
            "nesprin2": [(H, W)] * 4}[runner.split("_")[1]]
     assert sorted(calls) == sorted(per)
+
+
+# ------------------------------------------------------------------ PNG outputs
+# (the helpers are imported by the other runner tests; no matplotlib here:
+# the card machine has none)
+
+
+def lut_step(*cms) -> int:
+    """The largest change of any channel between two neighbouring entries
+    of the LUTs of *cms* (names or LUTs): one LUT step."""
+    return max(int(np.abs(np.diff(cmaps.lut_u8(c)[:, :3].astype(np.int16), axis=0)).max())
+               for c in cms)
+
+
+def colorbar_rect_px(img_w, img_h, canvas_w, canvas_h):
+    """(left, right, top, bottom) of the colorbar's axes in canvas pixels."""
+    fx, fy, fw, fh = tpil.colorbar_rect(img_w, img_h)
+    return (fx * canvas_w, (fx + fw) * canvas_w,
+            (1.0 - fy - fh) * canvas_h, (1.0 - fy) * canvas_h)
+
+
+def png_files(root):
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, fs in os.walk(root) for f in fs if f.endswith(".png"))
+
+
+def colorbar_zone(img_w, img_h, canvas_w, canvas_h, dpi=300):
+    """The canvas box (x0, x1, y0, y1) that the inset colorbar, its ticks and
+    its text may cover: from 3 px left of the bar to the canvas's right
+    edge, a 10 pt line above and below the bar."""
+    left, _, top, bottom = colorbar_rect_px(img_w, img_h, canvas_w, canvas_h)
+    pad = 1.2 * 10 * dpi / 72.0
+    return (int(left) - 3, canvas_w, max(0, int(top - pad)), int(bottom + pad) + 1)
+
+
+def crop_dims(P, W, H):
+    """(width, height) of the reference crop window of polygon *P*."""
+    x0, x1, y0, y1 = render.crop_bbox_poly(np.asarray(P), W, H)
+    return x1 - x0 + 1, y1 - y0 + 1
+
+
+def assert_pngs_match(troot, jroot, step=1, expect=None, colorbar=None, frac=1e-3):
+    """The PNG sets under two roots: the same names (*expect* of them when
+    given), canvas sizes and decoded RGB pixels, equal except at most *frac*
+    of a file's pixels within *step* (one LUT step: the ratio frames of
+    the two packages differ by float32 ulps, so a pixel on a LUT boundary
+    may move by one entry).  ``colorbar(name)`` gives the (width, height)
+    of the image under an inset colorbar in the *troot* file (None for a
+    file without one); the JAX package lays that colorbar out with
+    matplotlib, which also resamples the image beneath it, so *jroot* then
+    holds the same run without the colorbar, :func:`colorbar_zone` is left
+    out of the comparison and must hold a drawing (test_torch_render.py
+    holds the colorbar to matplotlib's).  Returns the names."""
+    names = png_files(troot)
+    assert names == png_files(jroot)
+    assert names and (expect is None or len(names) == expect), names
+    for name in names:
+        t = np.array(Image.open(os.path.join(troot, name)).convert("RGB")).astype(np.int16)
+        j = np.array(Image.open(os.path.join(jroot, name)).convert("RGB")).astype(np.int16)
+        assert t.shape == j.shape, (name, t.shape, j.shape)
+        d = np.abs(t - j).max(-1)
+        dims = colorbar(name) if colorbar is not None else None
+        if dims is not None:
+            x0, x1, y0, y1 = colorbar_zone(*dims, t.shape[1], t.shape[0])
+            assert (d[y0:y1, x0:x1] > 0).sum() > 20, (name, "no colorbar")
+            d[y0:y1, x0:x1] = 0
+        assert d.max() <= step and (d > 0).mean() <= frac, (name, d.max(), (d > 0).mean())
+    return names
