@@ -24,8 +24,10 @@ their PNG outputs (``do_png=True``), the morphology overlays and the
 channel cropper (``.pipelines.crop.run_crop``), U-Net cell segmentation of
 one 1536 x 2048 frame
 (``imageprocess_tpu_torch.segment.cellseg.segment_frame_unet``, the bundled
-golden checkpoint), ROI refinement (``.segment.drawer.refine_and_save``) and
-the FRET timelapse deck (``.pipelines.fretppt.run_fret_ppt``).  Phases, each
+golden checkpoint), ROI refinement (``.segment.drawer.refine_and_save``),
+the FRET timelapse deck (``.pipelines.fretppt.run_fret_ppt``) and the
+command line users run them through (``imageprocess_tpu_torch.cli``: the
+commands, ``--xprof`` and ``doctor``).  Phases, each
 of which exits non-zero on failure:
 
 1. the card's name and power limit;
@@ -153,7 +155,21 @@ of which exits non-zero on failure:
    ``run_fret_ppt`` over ratio / BF thumbnails written with PIL, read back
    with ``read_pptx_summary`` (slides and pictures counted).  The path
    launches no hand kernel: the JAX package's tile program is XLA;
-16. kernel and plain times per chunk: each kernel's time per call through
+16. the command line, on the card by default (no ``--device``):
+   ``python3 -m imageprocess_tpu_torch.cli intensity`` on the dataset as a
+   subprocess (its report equal to ``run_intensity``'s, byte for byte; its
+   wall seconds against the direct call: the CLI's overhead); in process,
+   ``cli.main`` for ``intensity``, ``intensity --batched`` and ``fret`` with
+   both kernels' launches counted around each call (equal to the direct
+   runners': 16 ``roistats_f32``; ``tilestats_u16`` at the runner's default
+   batch; 4 ``roistats_f32``) and their reports equal to the direct runs';
+   ``nesprin2 --batched`` (stage 1), ``morphology``, ``fa --batched``,
+   ``crop`` (stage 1), ``roi-auto --backend unet``, ``refine`` (a quarter
+   frame) and ``ppt``, each file equal to the direct call's; ``--xprof DIR``
+   (a trace that parses as JSON and names the ``roistats_f32`` kernel once
+   per key) and ``doctor --json`` (every check ok but ``mesh``, skipped),
+   both as subprocesses;
+17. kernel and plain times per chunk: each kernel's time per call through
    its Python wrapper against the plain version's (CUDA events around 50
    calls, in turns plain / kernel / kernel / plain), the kernel's device
    time by CUDA graph replay (the wrapper's host time left out), the grid
@@ -168,7 +184,8 @@ kernel table (``ms`` per call, ``device_ms`` by graph replay, ``bound_ms``,
 masked moments with six exact order statistics -- and
 ``launches_per_run``; ``roistats_f32`` also ``launches_serial`` and its
 ``serial_shapes`` times, ``launches_nesprin2`` and its ``nesprin2_shapes``
-times, ``launches_tiff_outputs``, ``launches_image_outputs``), then ``{"ok": true, "device": {...}}``.  Without
+times, ``launches_tiff_outputs``, ``launches_image_outputs``; both
+``launches_cli``), then ``{"ok": true, "device": {...}}``.  Without
 a card, or outside a checkout, it prints no result and exits non-zero.
 
 ``python3 chip_smoke.py --kernels-only`` stops after phase 3.
@@ -2937,6 +2954,307 @@ def run_refine_path(folder: str) -> dict:
             "vs_cpu": vs_cpu, "deck": deck}
 
 
+# ------------------------------------------------------------------ the command line
+
+CLI_TIMEOUT = 300          # s, each subprocess of the CLI phase
+REFINE_CROP = (768, 1024)  # the top-left quarter of refine's stage 1
+
+
+def tree_files(root: str) -> dict:
+    """{relative path: bytes, or {entry: bytes} for a zip archive (XLSX,
+    PPTX, ImageJ zip: entry times differ)} under *root*, the run logs
+    (named by their start time) and the profiler traces left out."""
+    import zipfile
+
+    out = {}
+    for d, _, names in os.walk(root):
+        for n in names:
+            p = os.path.join(d, n)
+            rel = os.path.relpath(p, root)
+            if rel.split(os.sep)[0] == "logs" or n.endswith(".pt.trace.json"):
+                continue
+            if zipfile.is_zipfile(p):
+                with zipfile.ZipFile(p) as z:
+                    out[rel] = {i: z.read(i) for i in z.namelist()}
+            else:
+                with open(p, "rb") as f:
+                    out[rel] = f.read()
+    return out
+
+
+def same_tree(got: str, want: str, what: str, expect=()) -> int:
+    """The files under *got* equal those under *want* (bytes; zip archives
+    entry by entry), and include *expect*; returns the number of files."""
+    g, w = tree_files(got), tree_files(want)
+    if sorted(g) != sorted(w):
+        raise SmokeError(f"CLI {what}: files {sorted(g)} vs {sorted(w)}")
+    bad = [k for k in w if g[k] != w[k]]
+    if bad:
+        raise SmokeError(f"CLI {what}: {bad[:3]} differ from the direct call's")
+    missing = [e for e in expect if e not in w]
+    if missing:
+        raise SmokeError(f"CLI {what}: {missing} not written")
+    return len(w)
+
+
+def cli_subprocess(args, what: str) -> tuple:
+    """``python3 -m imageprocess_tpu_torch.cli *args*`` from the checkout's
+    root, without ``--device``: (wall seconds, stdout)."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "imageprocess_tpu_torch.cli", *args],
+                         cwd=REPO, capture_output=True, text=True, timeout=CLI_TIMEOUT)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise SmokeError(f"CLI {what}: exit {res.returncode}: "
+                         f"{(res.stderr or res.stdout).strip()[-600:]}")
+    return wall, res.stdout
+
+
+def run_cli_phase(data: str, card_kind: str, direct: dict) -> dict:
+    """The port's command line as users run it, on the card (no
+    ``--device``).  *direct* holds the earlier phases' direct calls of
+    ``run_intensity`` ("serial") and ``run_fret_batched`` ("fret"), their
+    launch counts; their reports, and ``run_intensity_batched``'s, lie under
+    ``RES_serial``, ``RES_fret`` and ``RES_smoke``.
+
+    - ``intensity`` at full width as a subprocess: its report equals
+      ``run_intensity``'s, byte for byte; its wall seconds against the
+      direct call in this process (the CLI's overhead: interpreter, imports,
+      CUDA context, kernel libraries; ``--help`` alone as well);
+    - in process, ``cli.main`` for ``intensity`` (turns with the direct call
+      as the CLI makes it: argparse and the config), ``intensity --batched``
+      (the runner's default batch, against a direct call with it) and
+      ``fret``: launches counted around each call equal the direct runners',
+      reports equal theirs;
+    - ``nesprin2 --batched`` (stage 1), ``morphology`` (tables), ``fa
+      --batched``, ``crop`` (stage 1), ``roi-auto --backend unet`` (refine's
+      four synthcells frames), ``refine`` (a quarter of refine's stage 1)
+      and ``ppt`` (the deck's thumbnails): every file equals the direct
+      call's on the same input;
+    - ``--xprof DIR`` as a subprocess: the trace parses as JSON and names
+      the ``roistats_f32`` kernel once per key;
+    - ``doctor --json`` as a subprocess: every check ok but ``mesh``
+      (skipped), ``backend`` naming the card and both kernels."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from imageprocess_tpu_torch import cli
+    from imageprocess_tpu_torch import native
+    from imageprocess_tpu_torch.core import roiio, tiffio
+    from imageprocess_tpu_torch.ops import roi_stats_kernel as rsk
+    from imageprocess_tpu_torch.ops import tile_stats_kernel as tsk
+    from imageprocess_tpu_torch.pipelines import crop, intensity
+    from imageprocess_tpu_torch.pipelines import morphology, nesprin2
+    from imageprocess_tpu_torch.segment import auto, drawer
+
+    root = os.path.join(data, "cli")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    quiet = lambda *_: None  # noqa: E731
+    steps, launches = {}, {}
+    channels = [str(c) for c in CHANNELS]
+    colors = ["--colors", "2=Green", "3=Red"]
+
+    def out(name):
+        return os.path.join(root, name)
+
+    def main(name, argv):
+        """``cli.main(argv)`` in this process, its log captured, the
+        launches of both kernels counted around it."""
+        rsk.reset_launches()
+        tsk.reset_launches()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv + ["--lang", "en"])
+        torch.cuda.synchronize()
+        steps[name] = time.perf_counter() - t0
+        text = buf.getvalue()
+        if rc != 0 or "[ERROR]" in text or "[error]" in text:
+            raise SmokeError(f"CLI {name}: exit {rc}: {text[-600:]}")
+        return {"roistats_f32": rsk.launches["roistats_f32"],
+                "tilestats_u16": tsk.launches["tilestats_u16"]}
+
+    def counted(fn):
+        rsk.reset_launches()
+        tsk.reset_launches()
+        fn()
+        torch.cuda.synchronize()
+        return {"roistats_f32": rsk.launches["roistats_f32"],
+                "tilestats_u16": tsk.launches["tilestats_u16"]}
+
+    def want(name, got, expect):
+        if got != expect or not any(got.values()):
+            raise SmokeError(f"CLI {name}: launches {got}, the direct call's {expect}")
+
+    # full width, as a subprocess with no --device
+    argv = ["intensity", data, "--channels", *channels, *colors]
+    steps["intensity (subprocess)"], _ = cli_subprocess(
+        argv + ["--out", out("sub"), "--lang", "en"], "intensity (subprocess)")
+    same_tree(os.path.join(out("sub"), "xls"), os.path.join(data, "RES_serial", "xls"),
+              "intensity (subprocess) vs run_intensity", ["fluor_intensity_perROI.csv"])
+    steps["--help (subprocess)"], _ = cli_subprocess(["--help"], "--help")
+
+    # in process: the CLI and the direct call as the CLI makes it, in turns
+    cfg = intensity.IntensityConfig(channels=CHANNELS, channel_colors={2: "Green", 3: "Red"})
+
+    def direct_serial():
+        t0 = time.perf_counter()
+        intensity.run_intensity(data, cfg, out_root=out("direct"), log=quiet,
+                                run_log=True, progress=True, device="cuda")
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    turns = []
+    for k in range(4):
+        if k in (0, 3):
+            turns.append(direct_serial())
+        else:
+            got = main("intensity", argv + ["--out", out("serial")])
+            turns.append(steps["intensity"])
+            want("intensity", got, {"roistats_f32": direct["serial"]["launches"],
+                                    "tilestats_u16": 0})
+            launches["intensity"] = got
+    same_tree(os.path.join(out("serial"), "xls"), os.path.join(data, "RES_serial", "xls"),
+              "intensity vs run_intensity", ["fluor_intensity_perROI.csv"])
+    direct_s, cli_s = min(turns[0], turns[3]), min(turns[1], turns[2])
+
+    got = main("intensity --batched", argv + ["--batched", "--out", out("batched")])
+    ref = counted(lambda: intensity.run_intensity_batched(
+        data, cfg, out_root=out("batched_direct"), log=quiet, device="cuda"))
+    want("intensity --batched", got, ref)
+    launches["intensity --batched"] = got
+    same_tree(os.path.join(out("batched"), "xls"), os.path.join(data, "RES_smoke", "xls"),
+              "intensity --batched vs run_intensity_batched", ["fluor_intensity_perROI.csv"])
+    if not os.path.exists(os.path.join(out("batched"), "logs")):
+        raise SmokeError("CLI intensity --batched: no RES/logs/run_*.txt")
+
+    got = main("fret", ["fret", data, "--donor-ch", channels[0], "--acceptor-ch",
+                        channels[1], "--out", out("fret")])
+    want("fret", got, {"roistats_f32": direct["fret"]["launches"], "tilestats_u16": 0})
+    launches["fret"] = got
+    same_tree(os.path.join(out("fret"), "xls"), os.path.join(data, "RES_fret", "xls"),
+              "fret vs run_fret_batched", ["fret_ratio_perROI.csv"])
+
+    # smaller runs, each against the direct call on the same input
+    files = {}
+    n2_argv = ["--donor-ch", channels[0], "--fret-ch", channels[1], "--px-um", str(N2_PX_UM),
+               "--rim-um", str(N2_RIM_UM), "--subset-stage", "1"]
+    got = main("nesprin2 --batched", ["nesprin2", data, *n2_argv, "--batched",
+                                      "--out", out("n2")])
+    ref = counted(lambda: nesprin2.run_nesprin2_batched(
+        data, n2_config("annulus off", subset_stage=1), out_root=out("n2_direct"),
+        log=quiet, device="cuda"))
+    want("nesprin2 --batched", got, ref)
+    launches["nesprin2 --batched"] = got
+    files["nesprin2 --batched"] = same_tree(out("n2"), out("n2_direct"), "nesprin2",
+                                            [os.path.join("xls", "nesprin2_fret_perROI.csv")])
+
+    main("morphology", ["morphology", data, "--px-um", str(N2_PX_UM), "--channel",
+                        channels[0], "--no-full", "--no-crop", "--out", out("mor")])
+    morphology.run_morphology(data, morphology.MorConfig(
+        px_um=N2_PX_UM, sel_ch=CHANNELS[0], save_full=False, save_crop=False),
+        out_root=out("mor_direct"), log=quiet, device="cuda")
+    files["morphology"] = same_tree(out("mor"), out("mor_direct"), "morphology",
+                                    [os.path.join("xls", "morphology_perROI.csv")])
+
+    fa_dir = os.path.join(data, "fa")
+    main("fa --batched", ["fa", fa_dir, "--roi-dir", os.path.join(fa_dir, "roi"),
+                          "--out", out("fa"), "--channel", str(FA_CHANNEL),
+                          "--px-size", str(N2_PX_UM), "--alpha", "3", "--close-radius",
+                          "1", "--batched"])
+    files["fa --batched"] = same_tree(out("fa"), os.path.join(fa_dir, "RES_fa_batched"),
+                                      "fa --batched vs run_fa_batched",
+                                      ["FA_Results_Master.xlsx"])
+
+    main("crop", ["crop", data, "--channel", channels[0], "--subset-stage", "1",
+                  "--out", out("crop")])
+    crop.run_crop(data, os.path.join(data, "roi"), out("crop_direct"),
+                  crop.CropConfig(channel=CHANNELS[0], subset_stage=1), log=quiet,
+                  device="cuda")
+    files["crop"] = same_tree(out("crop"), out("crop_direct"), "crop")
+
+    refine_dir = os.path.join(data, "refine")
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True   # two forwards, one algorithm
+    try:
+        main("roi-auto --backend unet", ["roi-auto", refine_dir, "--backend", "unet",
+                                         "--channel", "1", "--out", out("auto")])
+        auto.run_auto_drawer(refine_dir, auto.AutoSegConfig(backend="unet", channel=1),
+                             roi_dir=out("auto_direct"), log=quiet, device="cuda")
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    files["roi-auto --backend unet"] = same_tree(
+        out("auto"), out("auto_direct"), "roi-auto",
+        [f"S{s:02d}.json" for s in range(1, REFINE_STAGES + 1)])
+
+    # refine: the top-left quarter of stage 1 and the rough polygons inside it
+    hq, wq = REFINE_CROP
+    img_dir = out("refine_img")
+    os.makedirs(img_dir)
+    frame = native.decode_tiff(os.path.join(refine_dir, "S01_1.TIF"))
+    tiffio.write_tiff16(os.path.join(img_dir, "S01_1.TIF"),
+                        np.ascontiguousarray(frame[:hq, :wq]))
+    rough = [p for p in roiio.load_roi_polygons(os.path.join(refine_dir, "rough", "S01.json"))
+             if p[:, 0].max() < wq - 1 and p[:, 1].max() < hq - 1]
+    if not rough:
+        raise SmokeError("CLI refine: no rough polygon inside the quarter frame")
+    for name in ("refine", "refine_direct"):
+        roiio.save_roi_bundle(os.path.join(out(name), "S01.json"), "S01", (hq, wq), rough)
+    main("refine", ["refine", img_dir, "--thr", str(REFINE_MODES["percentile"]),
+                    "--out", out("refine")])
+    drawer.refine_and_save(img_dir, drawer.RefineConfig(thr_param=REFINE_MODES["percentile"]),
+                           roi_dir=out("refine_direct"), log=quiet, device="cuda")
+    files["refine"] = same_tree(out("refine"), out("refine_direct"), "refine", [
+        "S01.json", os.path.join("mask", "S01_mask.tif"),
+        os.path.join("overlay", "S01_overlay.png"), os.path.join("zip", "S01.zip")])
+
+    deck = out("deck")
+    shutil.copytree(os.path.join(refine_dir, "deck"), deck,
+                    ignore=shutil.ignore_patterns("*.pptx"))
+    main("ppt", ["ppt", deck])
+    files["ppt"] = same_tree(deck, os.path.join(refine_dir, "deck"), "ppt vs run_fret_ppt",
+                             ["FRET_timelapse_auto.pptx"])
+
+    # --xprof, as a subprocess with no --device
+    trace_dir = out("trace")
+    steps["intensity --xprof (subprocess)"], _ = cli_subprocess(
+        argv + ["--out", out("xprof"), "--xprof", trace_dir, "--lang", "en"],
+        "intensity --xprof")
+    traces = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+    if len(traces) != 1:
+        raise SmokeError(f"CLI --xprof: traces {traces}")
+    with open(os.path.join(trace_dir, traces[0]), encoding="utf-8") as f:
+        events = json.load(f)["traceEvents"]
+    kernel_events = [e for e in events if e.get("cat") == "kernel"
+                     and "roi_stats_f32" in e.get("name", "")]
+    if len(kernel_events) != direct["serial"]["launches"]:
+        raise SmokeError(f"CLI --xprof: {len(kernel_events)} roi_stats_f32 kernels in the "
+                         f"trace, want {direct['serial']['launches']}")
+    launches["intensity --xprof (trace)"] = {"roistats_f32": len(kernel_events),
+                                             "tilestats_u16": 0}
+
+    # doctor
+    steps["doctor --json (subprocess)"], text = cli_subprocess(
+        ["doctor", "--json", "--backend-timeout", "240", "--lang", "en"], "doctor")
+    report = json.loads(next(ln for ln in text.splitlines() if ln.startswith("{")))
+    status = {k: v["status"] for k, v in report["checks"].items()}
+    backend = report["checks"]["backend"]["detail"]
+    if status != {"deps": "ok", "native": "ok", "numerics": "ok", "write": "ok",
+                  "backend": "ok", "mesh": "skip"} or not report["ok"] \
+            or card_kind not in backend or "tilestats_u16" not in backend \
+            or "roistats_f32" not in backend:
+        raise SmokeError(f"CLI doctor: {report}")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"steps_s": steps, "launches": launches, "files": files,
+            "refine_polygons": len(rough),
+            "direct_s": direct_s, "cli_s": cli_s, "turns_s": turns,
+            "doctor": {k: v["detail"] for k, v in report["checks"].items()}}
+
+
 def build_kernels() -> None:
     """Build every kernel, one nvcc each, all started together."""
     from imageprocess_tpu_torch.kernels import build
@@ -3277,6 +3595,31 @@ def main(argv) -> int:
         "launches_per_polygon", "scores", "vs_cpu", "profile", "deck")},
         "card": card}))
     stamp("refine and deck")
+    cres = run_cli_phase(data, kind, {"serial": serial["run_intensity"], "fret": fres})
+    st, ln = cres["steps_s"], cres["launches"]
+    sub = st["intensity (subprocess)"]
+    print(f"CLI ok on {card}: python3 -m imageprocess_tpu_torch.cli intensity (a "
+          f"subprocess, no --device: the card) {sub:.4f} s, its report equal to "
+          f"run_intensity's; the direct call in this process {cres['direct_s']:.4f} s, so "
+          f"the process's own overhead (interpreter, imports, CUDA context, kernel "
+          f"libraries) {sub - cres['direct_s']:.4f} s; --help alone {st['--help (subprocess)']:.4f} s; "
+          f"in process cli.main {cres['cli_s']:.4f} s against the direct call "
+          f"{cres['direct_s']:.4f} s (turns direct/cli/cli/direct "
+          f"{[round(x, 4) for x in cres['turns_s']]}): argparse and the config "
+          f"{cres['cli_s'] - cres['direct_s']:+.4f} s")
+    print("CLI launches counted around each call, equal to the direct runners': "
+          + ", ".join(f"{k} {v}" for k, v in ln.items()))
+    print("CLI files equal to the direct calls' (bytes; zip entries): "
+          + ", ".join(f"{k} {v}" for k, v in cres["files"].items())
+          + f" (refine: {cres['refine_polygons']} polygons in a {REFINE_CROP[0]}x"
+          f"{REFINE_CROP[1]} quarter of stage 1); --xprof trace names roi_stats_f32 "
+          f"{ln['intensity --xprof (trace)']['roistats_f32']} times; doctor: "
+          + "; ".join(f"{k}: {v}" for k, v in cres["doctor"].items()))
+    print("CLI step wall seconds on " + card + ": "
+          + ", ".join(f"{k} {v:.4f}" for k, v in st.items()))
+    print(json.dumps({"cli": {k: cres[k] for k in (
+        "steps_s", "launches", "files", "direct_s", "cli_s", "turns_s")}, "card": card}))
+    stamp("command line")
     workers = max(8, (os.cpu_count() or 1) * 2)
     dec = time_host_decode(data, workers)
     print(f"host share alone on this machine ({os.cpu_count()} cores, "
@@ -3328,7 +3671,9 @@ def main(argv) -> int:
                              *(tm["max_abs_err"] for tm in serial_times.values())),
                          ftiming),
     }
-    extra = {"roistats_f32": {
+    extra = {"tilestats_u16": {"launches_cli": {
+        k: v["tilestats_u16"] for k, v in cres["launches"].items() if v["tilestats_u16"]}},
+             "roistats_f32": {
         "launches_serial": {**{k: sr["launches"] for k, sr in serial.items()},
                             "variant_runs": vres["launches"]},
         "serial_shapes": {name: {k: tm[k] for k in (
@@ -3340,6 +3685,8 @@ def main(argv) -> int:
         "launches_tiff_outputs": {name: r["launches"] for name, r in tif.items()},
         "launches_image_outputs": {name: img[name]["launches"] for name in (
             "run_intensity", "run_fret", "run_nesprin2", "run_morphology")},
+        "launches_cli": {k: v["roistats_f32"] for k, v in cres["launches"].items()
+                         if v["roistats_f32"]},
         "nesprin2_shapes": {label: {k: tm[k] for k in (
             "shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "bytes",
             "valid", "grid", "use_smem", "stage_mask")}

@@ -2,11 +2,13 @@
 
 Korean is the default, as in the reference toolkit; ``t(key)`` falls back
 to a given default, then to the English entry, then to the key itself.
+``pick_lang_from_argv`` reads the command line's ``-mode`` / ``--lang`` and
+``set_lang`` switches the current language.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 DEFAULT_LANG = "ko"
 LANG_CURRENT = DEFAULT_LANG
@@ -181,3 +183,27 @@ def t(key: str, default: Optional[str] = None, lang: Optional[str] = None) -> st
     if default is not None:
         return default
     return STRINGS["en"].get(key, key)
+
+
+def pick_lang_from_argv(argv: Sequence[str]) -> str:
+    """``-mode EN`` / ``-mode KO`` (the reference's flag) and
+    ``--lang en|ko``.  Unknown values keep the default."""
+    lang = DEFAULT_LANG
+    args = list(argv)
+    for i, a in enumerate(args):
+        if a == "-mode" and i + 1 < len(args):
+            v = args[i + 1].lower()
+            if v in STRINGS:
+                lang = v
+        elif a.startswith("--lang"):
+            v = a.split("=", 1)[1] if "=" in a else (
+                args[i + 1] if i + 1 < len(args) else "")
+            if v.lower() in STRINGS:
+                lang = v.lower()
+    return lang
+
+
+def set_lang(lang: str) -> None:
+    global LANG_CURRENT
+    if lang.lower() in STRINGS:
+        LANG_CURRENT = lang.lower()

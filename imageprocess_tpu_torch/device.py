@@ -6,6 +6,9 @@ import contextlib
 
 import torch
 
+#: what a request for several devices names: it is not ported yet
+MULTI_DEVICE = "the multi-device slice (ROADMAP Queue 1 item 12)"
+
 
 def resolve_device(device) -> torch.device:
     """``torch.device`` for *device*; raises when a CUDA device is asked

@@ -59,7 +59,7 @@ import torch
 
 from .. import native
 from ..core import i18n, roiio, tiffio
-from ..device import resolve_device
+from ..device import MULTI_DEVICE, resolve_device
 from ..geom.rasterize import EdgeRule, rasterize_polygons
 from ..morphology import ccl
 from ..morphology.binary import binary_closing_skimage, disk
@@ -76,7 +76,6 @@ from ..timing import NO_TIMER
 from .intensity import PinnedPool, _bucket, to_device
 
 t = i18n.t
-MULTI_DEVICE = "the multi-device slice (ROADMAP Queue 1 item 12)"
 
 FA_CSV_COLS = ["File", "Cell_ID", "Category", "Area_px", "Area_um2",
                "Mean_Intensity_Raw", "Mean_Intensity_Corr",

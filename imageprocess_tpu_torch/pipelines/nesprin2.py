@@ -59,7 +59,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core import i18n, naming, roiio, tiffio
-from ..device import resolve_device
+from ..device import MULTI_DEVICE, resolve_device
 from ..geom.polygon import pad_polygons
 from ..geom.rasterize import rasterize_polygons
 from ..morphology.binary import square_dilation
@@ -79,7 +79,6 @@ from .intensity import PinnedPool, _bucket, frames_on_host, to_device
 
 t = i18n.t
 ChannelGrammar = naming.ChannelGrammar
-MULTI_DEVICE = "the multi-device slice (ROADMAP Queue 1 item 12)"
 
 # rim/annulus presets (µm): thin/medium/thick (Nesprin2:632-637)
 RIM_PRESETS = {

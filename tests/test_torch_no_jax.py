@@ -90,6 +90,36 @@ def test_main_path_import_pulls_in_no_jax_pil_pandas():
     assert json.loads(res.stdout.strip().splitlines()[-1]) == []
 
 
+@pytest.mark.parametrize("argv", [None, ["--help"], ["doctor", "--skip-backend"]],
+                         ids=["import", "help", "doctor"])
+def test_cli_and_doctor_pull_in_no_jax_and_no_pipeline(argv):
+    """Importing ``imageprocess_tpu_torch.cli`` and ``utils.doctor`` (and
+    running ``--help`` or ``doctor``) pulls in none of jax, flax, pandas,
+    matplotlib, h5py or the JAX package, and loads no pipeline: each
+    command imports its runner when it runs."""
+    run = "" if argv is None else (
+        "try:\n"
+        f"    imageprocess_tpu_torch.cli.main({argv!r})\n"
+        "except SystemExit:\n"
+        "    pass\n")
+    code = (
+        "import json, sys\n"
+        "import imageprocess_tpu_torch.cli\n"
+        "import imageprocess_tpu_torch.utils.doctor\n"
+        "import imageprocess_tpu_torch.utils.profiling\n"
+        + run +
+        "mods = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'pandas', 'matplotlib', 'h5py', "
+        "'imageprocess_tpu') or m.startswith(('imageprocess_tpu_torch.pipelines', "
+        "'imageprocess_tpu_torch.segment'))]\n"
+        "print(json.dumps(mods))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+
+
 def test_png_outputs_and_the_cropper_run_without_matplotlib(tmp_path):
     """A process in which ``import matplotlib`` fails runs every PNG output
     -- intensity, FRET and rim FRET with ``do_png`` at their defaults (the
