@@ -21,7 +21,9 @@ and ``run_fa_batch`` (``.pipelines.fa``, on an experiment of the same shape
 with bright blobs inside each cell), the TIFF image outputs of
 ``run_intensity``, ``run_fret`` and ``run_nesprin2`` (``do_tif=True``),
 their PNG outputs (``do_png=True``), the morphology overlays and the
-channel cropper (``.pipelines.crop.run_crop``), U-Net cell segmentation of
+channel cropper (``.pipelines.crop.run_crop``), the figures that the JAX
+package lays out with matplotlib (the rim-FRET panel, the FA overview
+figures and crop PNGs), U-Net cell segmentation of
 one 1536 x 2048 frame
 (``imageprocess_tpu_torch.segment.cellseg.segment_frame_unet``, the bundled
 golden checkpoint), ROI refinement (``.segment.drawer.refine_and_save``),
@@ -169,7 +171,18 @@ of which exits non-zero on failure:
    (a trace that parses as JSON and names the ``roistats_f32`` kernel once
    per key) and ``doctor --json`` (every check ok but ``mesh``, skipped),
    both as subprocesses;
-17. kernel and plain times per chunk: each kernel's time per call through
+17. the figures that the JAX package lays out with matplotlib, drawn with
+   PIL: the rim-FRET 2-up panel of ``run_nesprin2`` and
+   ``run_nesprin2_batched`` (annulus and QC, ``do_png``, ``save_panel``,
+   ``add_scalebar``) on 2 stages, its ``roistats_f32`` launches equal to
+   the same run's without the panel (each held to the plain version) and
+   the panels equal to the CPU run's pixel for pixel; ``fa --figs
+   --export-crops`` (and ``--mat-dir`` with a crafted MATLAB v7.3 file
+   where h5py imports, which a line says) through ``cli.main`` on 2 stages
+   x 18 cells of the FA experiment, every overview figure and crop equal
+   to the direct CPU calls' pixel for pixel; seconds per panel, per
+   overview figure and per crop;
+18. kernel and plain times per chunk: each kernel's time per call through
    its Python wrapper against the plain version's (CUDA events around 50
    calls, in turns plain / kernel / kernel / plain), the kernel's device
    time by CUDA graph replay (the wrapper's host time left out), the grid
@@ -184,8 +197,8 @@ kernel table (``ms`` per call, ``device_ms`` by graph replay, ``bound_ms``,
 masked moments with six exact order statistics -- and
 ``launches_per_run``; ``roistats_f32`` also ``launches_serial`` and its
 ``serial_shapes`` times, ``launches_nesprin2`` and its ``nesprin2_shapes``
-times, ``launches_tiff_outputs``, ``launches_image_outputs``; both
-``launches_cli``), then ``{"ok": true, "device": {...}}``.  Without
+times, ``launches_tiff_outputs``, ``launches_image_outputs``,
+``launches_figures``; both ``launches_cli``), then ``{"ok": true, "device": {...}}``.  Without
 a card, or outside a checkout, it prints no result and exits non-zero.
 
 ``python3 chip_smoke.py --kernels-only`` stops after phase 3.
@@ -3255,6 +3268,211 @@ def run_cli_phase(data: str, card_kind: str, direct: dict) -> dict:
             "doctor": {k: v["detail"] for k, v in report["checks"].items()}}
 
 
+# ------------------------------------------------------------------ the figures
+
+FIG_STAGES = 2             # of the tables dataset (rim-FRET panel) and of the FA experiment
+
+
+def _same_pngs(card_root: str, cpu_root: str, names, what: str) -> int:
+    """The PNGs *names* under both roots are equal pixel for pixel; returns
+    how many."""
+    import numpy as np
+    from PIL import Image
+
+    for name in names:
+        a = np.asarray(Image.open(os.path.join(card_root, name)).convert("RGB"))
+        b = np.asarray(Image.open(os.path.join(cpu_root, name)).convert("RGB"))
+        if a.shape != b.shape or not np.array_equal(a, b):
+            diff = "canvas" if a.shape != b.shape else int((a != b).any(-1).sum())
+            raise SmokeError(f"{what} {name}: the card's PNG differs from the CPU's "
+                             f"({diff} pixels)")
+    return len(names)
+
+
+def write_mat_v73(path: str, polys) -> None:
+    """A MATLAB-v7.3-layout boundary file (dataset ``bdokcc``, a cell of
+    cells of references onto (2, N) [y; x] arrays), one boundary a cell."""
+    import h5py
+    import numpy as np
+
+    with h5py.File(path, "w") as f:
+        refs = f.create_group("#refs#")
+        outer = []
+        for i, p in enumerate(polys):
+            d = refs.create_dataset(f"c{i}", data=np.asarray(p, float)[:, [1, 0]].T)
+            cell = refs.create_dataset(f"cell{i}", data=np.array(
+                [d.ref], dtype=h5py.ref_dtype)[:, None])
+            outer.append(cell.ref)
+        f.create_dataset("bdokcc", data=np.array(outer, dtype=h5py.ref_dtype)[:, None])
+
+
+def run_figures(data: str) -> dict:
+    """The figures that the JAX package lays out with matplotlib.
+
+    - The rim-FRET 2-up panel: ``run_nesprin2`` and ``run_nesprin2_batched``
+      (annulus and QC, ``do_png``, ``save_panel``, ``add_scalebar``) on
+      ``FIG_STAGES`` stages of the tables dataset with ``IMAGE_ROIS`` ROIs,
+      on the card (every ``roistats_f32`` launch held to its plain version)
+      and once without the panel (launches equal, seconds per panel from
+      the difference), then on the CPU: the panels equal pixel for pixel.
+    - ``fa --figs --export-crops`` through ``cli.main`` on the card (no
+      ``--device``) over ``FIG_STAGES`` stages of the FA experiment (18
+      cells each), with ``--mat-dir`` and a crafted v7.3 file for S01 where
+      h5py imports; the figures and crops equal the direct CPU calls' pixel
+      for pixel; then the direct card calls timed (seconds per overview
+      figure and per crop, each with its stage's ``analyze_image`` rerun,
+      timed alone too)."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from imageprocess_tpu_torch import cli
+    from imageprocess_tpu_torch.core import roiio, tiffio
+    from imageprocess_tpu_torch.ops import roi_stats_kernel as rsk
+    from imageprocess_tpu_torch.ops import tile_stats_kernel as tsk
+    from imageprocess_tpu_torch.pipelines import fa, nesprin2
+
+    quiet = lambda *_: None  # noqa: E731
+    root = os.path.join(data, "figures")
+    shutil.rmtree(root, ignore_errors=True)
+    n2_dir = os.path.join(root, "n2")
+    os.makedirs(os.path.join(n2_dir, "roi"))
+    for s in range(1, FIG_STAGES + 1):
+        for ch in CHANNELS:
+            shutil.copy(os.path.join(data, f"S{s:02d}_{ch}.TIF"), n2_dir)
+        roiio.save_roi_bundle(os.path.join(n2_dir, "roi", f"S{s:02d}.json"), f"S{s:02d}",
+                              (H, W), bench_polys()[:IMAGE_ROIS])
+    res = {"panel": {}}
+
+    def n2_run(runner, out, device, panel):
+        cfg = n2_config("annulus on + QC", do_xls=False, do_png=True, save_panel=panel,
+                        add_scalebar=True)
+        return getattr(nesprin2, runner)(n2_dir, cfg, out_root=os.path.join(root, out),
+                                         log=quiet, device=device)
+
+    panel_dir = os.path.join("PNG", "panel")
+    cpu_rows = n2_run("run_nesprin2", "n2_cpu", "cpu", True)
+    panels = sorted(os.path.join(panel_dir, f) for f in os.listdir(
+        os.path.join(root, "n2_cpu", panel_dir)))
+    if len(panels) != FIG_STAGES:
+        raise SmokeError(f"panel: the CPU run wrote {panels}")
+    for runner in ("run_nesprin2", "run_nesprin2_batched"):
+        t0 = time.perf_counter()
+        rsk.reset_launches()
+        plain_rows = n2_run(runner, f"n2_{runner}_plain", "cuda", False)
+        torch.cuda.synchronize()
+        plain_s, plain_launches = time.perf_counter() - t0, rsk.launches["roistats_f32"]
+        t0 = time.perf_counter()
+        rsk.reset_launches()
+        with CheckedRoiRows(f"{runner} save_panel") as chk:
+            rows = n2_run(runner, f"n2_{runner}", "cuda", True)
+        torch.cuda.synchronize()
+        panel_s, launches = time.perf_counter() - t0, rsk.launches["roistats_f32"]
+        if launches != plain_launches or launches != 2 * FIG_STAGES \
+                or len(chk.errs) != launches:
+            raise SmokeError(f"panel {runner}: {launches} roistats_f32 launches "
+                             f"({len(chk.errs)} checked), {plain_launches} without the "
+                             f"panel, want {2 * FIG_STAGES}")
+        if os.path.exists(os.path.join(root, f"n2_{runner}_plain", panel_dir)):
+            raise SmokeError(f"panel {runner}: a run without save_panel wrote panels")
+        _rows_equal(rows, plain_rows, f"{runner} with the panel vs without",
+                    ("_mean", "_std", "_vsum"), FIG_STAGES * IMAGE_ROIS)
+        _rows_equal(rows, cpu_rows, f"{runner} card vs CPU", ("_mean", "_std", "_vsum"),
+                    FIG_STAGES * IMAGE_ROIS)
+        res["panel"][runner] = {
+            "launches": launches, "launches_without_panel": plain_launches,
+            "compared": _same_pngs(os.path.join(root, f"n2_{runner}"),
+                                   os.path.join(root, "n2_cpu"), panels,
+                                   f"panel {runner}"),
+            "s": panel_s, "s_without_panel": plain_s,
+            "s_per_panel": (panel_s - plain_s) / FIG_STAGES, **chk.worst()}
+
+    # fa --figs --export-crops through the command line, on the card
+    fa_src, fa_dir = os.path.join(data, "fa"), os.path.join(root, "fa")
+    os.makedirs(os.path.join(fa_dir, "roi"))
+    for s in range(1, FIG_STAGES + 1):
+        shutil.copy(os.path.join(fa_src, f"S{s:02d}_{FA_CHANNEL}.TIF"), fa_dir)
+        shutil.copy(os.path.join(fa_src, "roi", f"S{s:02d}.json"),
+                    os.path.join(fa_dir, "roi"))
+    try:
+        import h5py
+        res["h5py"] = h5py.__version__
+    except ImportError:
+        res["h5py"] = None
+    mat_dir = None
+    if res["h5py"]:
+        mat_dir = os.path.join(root, "mat")
+        os.makedirs(mat_dir)
+        write_mat_v73(os.path.join(mat_dir, "BNDb_e1s1.mat"),
+                      [_circle(150 + 200 * i, 150, 40.0) for i in range(3)])
+    argv = ["fa", fa_dir, "--roi-dir", os.path.join(fa_dir, "roi"), "--channel",
+            str(FA_CHANNEL), "--px-size", str(N2_PX_UM), "--alpha", "3",
+            "--close-radius", "1", "--figs", "--export-crops", "--lang", "en"]
+    if mat_dir:
+        argv += ["--mat-dir", mat_dir]
+    rsk.reset_launches()
+    tsk.reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv + ["--out", os.path.join(root, "fa_cli")])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    if rc != 0 or "[ERROR]" in buf.getvalue():
+        raise SmokeError(f"CLI fa --figs --export-crops: exit {rc}: {buf.getvalue()[-600:]}")
+    cfg = fa_config()
+    cpu_root = os.path.join(root, "fa_cpu")
+    figs = fa.save_fa_figs(fa_dir, os.path.join(fa_dir, "roi"), cpu_root, cfg,
+                           mat_dir=mat_dir, log=quiet, device="cpu")
+    crops = fa.export_fa_crops(fa_dir, os.path.join(fa_dir, "roi"), cpu_root, cfg,
+                               log=quiet, device="cpu")
+    names = sorted(os.path.relpath(p, cpu_root) for p in figs + crops)
+    got = sorted(_png_files(os.path.join(root, "fa_cli")))
+    if got != names or len(figs) != FIG_STAGES or len(crops) != FIG_STAGES * N_ROI:
+        raise SmokeError(f"CLI fa figures: {got[:4]}... ({len(got)}) vs the direct "
+                         f"calls' {names[:4]}... ({len(names)})")
+    compared = _same_pngs(os.path.join(root, "fa_cli"), cpu_root, names,
+                          "CLI fa --figs --export-crops")
+    if mat_dir:     # the overlay is drawn: magenta in S01's figure, none in S02's
+        from PIL import Image
+
+        for s, want in ((1, True), (2, False)):
+            a = np.asarray(Image.open(os.path.join(cpu_root, "fig", f"S{s:02d}_FA.png"))
+                           .convert("RGB")).astype(int)
+            magenta = ((a[..., 0] > 180) & (a[..., 2] > 180) & (a[..., 1] < 100)).sum()
+            if (magenta > 0) != want:
+                raise SmokeError(f"fa --mat-dir: {magenta} magenta pixels in S{s:02d}")
+    # the direct calls on the card, timed, and analyze_image alone
+    card_root = os.path.join(root, "fa_card")
+    t0 = time.perf_counter()
+    fa.save_fa_figs(fa_dir, os.path.join(fa_dir, "roi"), card_root, cfg,
+                    mat_dir=mat_dir, log=quiet, device="cuda")
+    torch.cuda.synchronize()
+    figs_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fa.export_fa_crops(fa_dir, os.path.join(fa_dir, "roi"), card_root, cfg,
+                       log=quiet, device="cuda")
+    torch.cuda.synchronize()
+    crops_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for img_path, json_path, _ in fa.list_fa_pairs(fa_dir, os.path.join(fa_dir, "roi"),
+                                                    FA_CHANNEL):
+        fa.analyze_image(tiffio.read_2d(img_path, squeeze="smallest_axis"),
+                         fa._load_rois(json_path), cfg, device="cuda")
+    torch.cuda.synchronize()
+    analyze_s = (time.perf_counter() - t0) / FIG_STAGES
+    res["fa"] = {"cli_s": cli_s, "files": compared, "mat_dir": bool(mat_dir),
+                 "launches": {"roistats_f32": rsk.launches["roistats_f32"],
+                              "tilestats_u16": tsk.launches["tilestats_u16"]},
+                 "s_per_figure": figs_s / FIG_STAGES,
+                 "s_per_crop": crops_s / (FIG_STAGES * N_ROI),
+                 "analyze_s_per_stage": analyze_s}
+    shutil.rmtree(root, ignore_errors=True)
+    return res
+
+
 def build_kernels() -> None:
     """Build every kernel, one nvcc each, all started together."""
     from imageprocess_tpu_torch.kernels import build
@@ -3620,6 +3838,30 @@ def main(argv) -> int:
     print(json.dumps({"cli": {k: cres[k] for k in (
         "steps_s", "launches", "files", "direct_s", "cli_s", "turns_s")}, "card": card}))
     stamp("command line")
+    figs = run_figures(data)
+    print("figures: h5py " + (f"{figs['h5py']} imports on this machine, so the --mat-dir "
+                              "overlay runs here" if figs["h5py"] else
+                              "does not import on this machine: --mat-dir is left out "
+                              "here (the CPU tests run it)"))
+    for runner, r in figs["panel"].items():
+        print(f"rim-FRET panel ok: {runner} (annulus + QC, do_png, save_panel, "
+              f"add_scalebar) on {FIG_STAGES} stages x {IMAGE_ROIS} ROIs: {r['compared']} "
+              f"panels equal to the CPU run's pixel for pixel; roistats_f32 launches "
+              f"{r['launches']} with the panel, {r['launches_without_panel']} without, each "
+              f"equal to its plain version (max_abs_err={r['max_abs_err']}); on {card} "
+              f"{r['s']:.4f} s with the panel, {r['s_without_panel']:.4f} s without = "
+              f"{r['s_per_panel']:.4f} s per panel")
+    fr = figs["fa"]
+    print(f"FA figures ok: fa --figs --export-crops{' --mat-dir' if fr['mat_dir'] else ''} "
+          f"through cli.main on the card over {FIG_STAGES} stages x {N_ROI} cells: "
+          f"{fr['files']} PNGs equal to the direct CPU calls' pixel for pixel "
+          f"(launches {fr['launches']}; the FA path has no hand kernel); on {card} "
+          f"the CLI run {fr['cli_s']:.4f} s, save_fa_figs {fr['s_per_figure']:.4f} s per "
+          f"overview figure, export_fa_crops {fr['s_per_crop']:.4f} s per crop, each "
+          f"with its stage's analyze_image rerun ({fr['analyze_s_per_stage']:.4f} s per "
+          f"stage alone)")
+    print(json.dumps({"figures": figs, "card": card}))
+    stamp("figures")
     workers = max(8, (os.cpu_count() or 1) * 2)
     dec = time_host_decode(data, workers)
     print(f"host share alone on this machine ({os.cpu_count()} cores, "
@@ -3668,6 +3910,7 @@ def main(argv) -> int:
                              *(r["max_abs_err"] for r in tif.values()),
                              *(img[k]["max_abs_err"] for k in ("run_intensity", "run_fret",
                                                                "run_nesprin2")),
+                             *(r["max_abs_err"] for r in figs["panel"].values()),
                              *(tm["max_abs_err"] for tm in serial_times.values())),
                          ftiming),
     }
@@ -3687,6 +3930,8 @@ def main(argv) -> int:
             "run_intensity", "run_fret", "run_nesprin2", "run_morphology")},
         "launches_cli": {k: v["roistats_f32"] for k, v in cres["launches"].items()
                          if v["roistats_f32"]},
+        "launches_figures": {f"{name} save_panel": r["launches"]
+                             for name, r in figs["panel"].items()},
         "nesprin2_shapes": {label: {k: tm[k] for k in (
             "shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "bytes",
             "valid", "grid", "use_smem", "stage_mask")}

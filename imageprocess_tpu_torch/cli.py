@@ -18,10 +18,8 @@ computes takes ``--device`` (default ``cuda``; it raises without a card,
 so a run on the CPU is asked for by name: ``--device cpu``).
 
 Not ported yet, each raising ``NotImplementedError`` before a file is read
-or written: ``--devices N`` above 1 (``device.MULTI_DEVICE``); ``nesprin2
---panel`` with ``--png``, ``fa --figs`` and ``fa --export-crops``
-(``report.render.FIGURES``); the interactive ``draw`` and ``fa-tune``
-(``APPS``).
+or written: ``--devices N`` above 1 (``device.MULTI_DEVICE``); the
+interactive ``draw`` and ``fa-tune`` (``APPS``).
 """
 
 from __future__ import annotations
@@ -189,8 +187,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tif", action="store_true")
     p.add_argument("--png", action="store_true")
     p.add_argument("--panel", action="store_true",
-                   help="write the 2-up ratio/intensity panel PNG (not "
-                        "ported yet)")
+                   help="write the 2-up ratio/intensity panel PNG")
     p.add_argument("--no-xls", action="store_true")
     p.add_argument("--subset-stage", type=int, default=None)
     p.add_argument("--subset-time", type=int, default=None)
@@ -213,11 +210,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-master", action="store_true",
                    help="skip the merged master workbook")
     p.add_argument("--figs", action="store_true",
-                   help="write per-stage overview figures (not ported yet)")
+                   help="write per-stage overview figures (BND_FA/fig)")
     p.add_argument("--mat-dir", default=None, metavar="DIR",
-                   help="legacy MATLAB boundary dir for the --figs overlay")
+                   help="legacy MATLAB boundary dir: overlay magenta dashed "
+                        "boundaries matched by stage tag in the --figs "
+                        "output (needs h5py)")
     p.add_argument("--export-crops", action="store_true",
-                   help="write per-cell FA crop PNGs (not ported yet)")
+                   help="write per-cell FA crop PNGs (crops_export/)")
     p.add_argument("--batched", action="store_true",
                    help="streaming batched runner: prefetch decode + one "
                         "device step per chunk of stages")
@@ -386,21 +385,10 @@ def _parse_ch_map(specs, value_type, flag: str, shape: str) -> dict:
 
 
 def _refuse_unported(args) -> None:
-    """The commands and flags of later slices raise before a file is read
-    or written."""
+    """The commands of later slices raise before a file is read or
+    written."""
     if args.cmd in ("draw", "fa-tune"):
         raise NotImplementedError(f"{args.cmd} is not ported yet: {APPS}")
-    flags = []
-    if args.cmd == "nesprin2" and args.panel and args.png:
-        flags.append("--panel")
-    if args.cmd == "fa":
-        flags += [f for f, on in (("--figs", args.figs),
-                                  ("--export-crops", args.export_crops)) if on]
-    if flags:
-        from .report.render import FIGURES
-
-        raise NotImplementedError(
-            f"{args.cmd} {' '.join(flags)} is not ported yet: {FIGURES}")
 
 
 def _dispatch(args, log) -> int:
@@ -586,6 +574,16 @@ def _dispatch(args, log) -> int:
         else:
             run_fa_batch(args.img_dir, args.roi_dir, args.out, cfg, log=log,
                          device=args.device)
+        if args.figs:
+            from .pipelines.fa import save_fa_figs
+
+            save_fa_figs(args.img_dir, args.roi_dir, args.out, cfg,
+                         mat_dir=args.mat_dir, log=log, device=args.device)
+        if args.export_crops:
+            from .pipelines.fa import export_fa_crops
+
+            export_fa_crops(args.img_dir, args.roi_dir, args.out, cfg, log=log,
+                            device=args.device)
         return 0
 
     if args.cmd == "crop":

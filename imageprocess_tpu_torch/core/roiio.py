@@ -229,3 +229,56 @@ def load_imagej_roi_zip(zip_path: str) -> List[np.ndarray]:
             if info.filename.lower().endswith(".roi"):
                 polys.append(decode_imagej_roi(zf.read(info)))
     return polys
+
+
+# --- MATLAB v7.3 boundaries ---------------------------------------------------
+
+def find_matching_mat(mat_dir: str, s_tag: str) -> Optional[str]:
+    """The legacy MATLAB boundary file of a stage tag (FA_Analyzer.py:105-117):
+    exact ``{s_tag}.mat``, then ``BNDb_{s_tag}.mat``, then the first sorted
+    ``*.mat`` whose basename contains ``s{N}.mat`` or ``s{N}_`` for the tag's
+    first integer (so ``S01`` matches ``BNDb_e1s1.mat``)."""
+    import glob
+    import re
+
+    if not os.path.isdir(mat_dir):
+        return None
+    for name in (f"{s_tag}.mat", f"BNDb_{s_tag}.mat"):
+        p = os.path.join(mat_dir, name)
+        if os.path.exists(p):
+            return p
+    m = re.search(r"\d+", s_tag)
+    if m is None:
+        return None
+    num = int(m.group())
+    for cand in sorted(glob.glob(os.path.join(mat_dir, "*.mat"))):
+        base = os.path.basename(cand)
+        if f"s{num}.mat" in base or f"s{num}_" in base:
+            return cand
+    return None
+
+
+def load_matlab_boundaries(mat_path: str, dataset: str = "bdokcc") -> List[np.ndarray]:
+    """Boundary polygons of a MATLAB v7.3 (HDF5) cell-of-cells file as
+    (N, 2) [x, y] arrays (MATLAB stores [y x]; FA_Analyzer.py:82-117).
+    Needs h5py, imported here only: without it the call raises."""
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError(f"reading the MATLAB v7.3 boundaries of {mat_path} "
+                          "needs h5py") from e
+
+    polys: List[np.ndarray] = []
+    with h5py.File(mat_path, "r") as f:
+        if dataset not in f:
+            return polys
+        for ref in np.asarray(f[dataset]).ravel():
+            cell = f[ref]
+            for iref in np.asarray(cell).ravel():
+                is_ref = isinstance(iref, h5py.Reference)
+                arr = np.asarray(f[iref] if is_ref else cell).T  # (N, 2) [y, x]
+                if arr.ndim == 2 and arr.shape[1] >= 2 and arr.shape[0] >= 3:
+                    polys.append(arr[:, [1, 0]].astype(float))
+                if not is_ref:
+                    break
+    return polys

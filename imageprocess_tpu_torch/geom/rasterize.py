@@ -19,7 +19,7 @@ runs this in XLA, not Pallas; a hand kernel for it is later work.
 from __future__ import annotations
 
 import enum
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -93,6 +93,16 @@ def rasterize_polygons(
     return (count & 1).to(torch.bool)
 
 
+def rasterize_union(
+    verts: torch.Tensor,
+    shape: Tuple[int, int],
+    rule: EdgeRule = EdgeRule.MPL,
+) -> torch.Tensor:
+    """OR of all polygon masks (N, V, 2) -> (H, W) bool: the reference's
+    ROI-union scope mask."""
+    return rasterize_polygons(verts, shape, rule).any(dim=0)
+
+
 def rasterize_polygon_np(
     poly: np.ndarray, shape: Tuple[int, int], rule: EdgeRule = EdgeRule.MPL
 ) -> np.ndarray:
@@ -140,3 +150,12 @@ def rasterize_polygon_np(
     total = hist.sum(axis=1, keepdims=True)
     count = total - np.cumsum(hist[:, :W], axis=1)
     return (count % 2).astype(bool)
+
+
+def rasterize_polygons_np(
+    polys: Sequence[np.ndarray],
+    shape: Tuple[int, int],
+    rule: EdgeRule = EdgeRule.MPL,
+) -> np.ndarray:
+    """:func:`rasterize_polygon_np` of each polygon, stacked (N, H, W)."""
+    return np.stack([rasterize_polygon_np(p, shape, rule) for p in polys])

@@ -14,7 +14,7 @@ kernel is held to on the card.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -82,3 +82,29 @@ def roi_stats(imgs: torch.Tensor, masks: torch.Tensor, p_lo1000: int = 5000,
     tensors (npx is (C, N) int32; identical across channels unless NaNs
     differ)."""
     return masked_stats_batched(imgs[:, None], masks[None], p_lo1000, p_hi1000)
+
+
+def auto_minmax(
+    img: torch.Tensor,
+    p_lo1000: int = 1000,
+    p_hi1000: int = 99000,
+    mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Display range at the finite (and masked) pixels' percentiles, with a
+    hi > lo guard (Fluor_INT.py:540-548): (0, 1) without such pixels, and
+    hi = lo + max(1e-6, |lo| * 1e-6) where hi <= lo, so the float32 range
+    never collapses."""
+    valid = torch.isfinite(img)
+    if mask is not None:
+        valid = valid & mask
+    n = valid.sum(dtype=torch.int32)
+    xs = torch.sort(torch.where(valid, img, torch.full_like(img, float("inf")))
+                    .reshape(-1)).values
+    lo = quantile_from_sorted(xs, n, p_lo1000)
+    hi = quantile_from_sorted(xs, n, p_hi1000)
+    lo = torch.where(n > 0, lo, torch.zeros_like(lo))
+    hi = torch.where(n > 0, hi, torch.ones_like(hi))
+    eps = torch.maximum(torch.tensor(1e-6, dtype=lo.dtype, device=lo.device),
+                        lo.abs() * 1e-6)
+    hi = torch.where(hi <= lo, lo + eps, hi)
+    return lo, hi

@@ -40,9 +40,13 @@ the same numbers), the master workbook grouped with plain dicts.  The
 runners return ``{s_tag: rows}``, each row a dict in ``FA_CSV_COLS`` order,
 where the JAX package returns DataFrames.
 
-Not ported: the overview figures and the per-cell crop PNGs
-(``save_fa_figs``, ``export_fa_crops``: matplotlib, and h5py for the MATLAB
-overlay) and ``mesh=``; each raises ``NotImplementedError`` naming its
+The per-stage overview figures (``save_fa_figs``, with the MATLAB
+boundary overlay read by ``core.roiio`` through h5py) and the per-cell crop
+PNGs (``export_fa_crops``) are drawn with PIL after the JAX package's
+matplotlib geometry (``report.pilcomp``, ``report.render``); each reruns
+``analyze_image`` per stage, as the JAX package does.
+
+Not ported: ``mesh=``, which raises ``NotImplementedError`` naming its
 ROADMAP item.
 """
 
@@ -71,7 +75,7 @@ from ..ops.roistats import choose_tile, pad_local_polys, tile_offsets
 from ..parallel import runner
 from ..report import xlsxlite
 from ..report.excel import _write_csv
-from ..report.render import FIGURES
+from ..report.ticks import nonsingular
 from ..timing import NO_TIMER
 from .intensity import PinnedPool, _bucket, to_device
 
@@ -735,17 +739,192 @@ def restore_cell_settings(out_root: str, s_tag: str) -> Dict[int, dict]:
     return out
 
 
-def export_fa_crops(*args, **kwargs):
-    """Per-cell FA-mask crop PNGs: not ported (matplotlib)."""
-    raise NotImplementedError(
-        f"the FA crop PNGs are not ported yet: {FIGURES}")
+def export_fa_crops(
+    img_dir: str,
+    roi_dir: str,
+    out_root: str,
+    cfg: FaConfig,
+    cmap: str = "jet",
+    sb_on: bool = True,
+    sb_len_um: float = 10.0,
+    dpi: int = 300,
+    log=print,
+    device="cuda",
+) -> List[str]:
+    """Per-cell FA-mask crop PNGs under ``crops_export/<s_tag>/Cell_N.png``
+    (FA_Analyzer.py ExportDialog, :1119-1279 + save_crop_colormap :213-264),
+    drawn by ``report.render.save_fa_crop_colormap``.  Each stage runs
+    ``analyze_image`` on *device* (``"cuda"``, the default, raises without a
+    card; or ``"cpu"``) once more, as the JAX package does."""
+    from ..report.render import save_fa_crop_colormap
+
+    dev = resolve_device(device)
+    out_dir = os.path.join(out_root, "crops_export")
+    written: List[str] = []
+    for img_path, json_path, s_tag in list_fa_pairs(img_dir, roi_dir, cfg.channel):
+        img = tiffio.read_2d(img_path, squeeze="smallest_axis")
+        rois = _load_rois(json_path)
+        _, _, _, extras = analyze_image(img, rois, cfg, device=dev)
+        if not extras:
+            continue
+        labels, offs, tile = extras["labels"], extras["offsets"], extras["tile"]
+        file_dir = os.path.join(out_dir, s_tag)
+        os.makedirs(file_dir, exist_ok=True)
+        H, W = img.shape
+        for i, roi_poly in enumerate(rois):
+            xs, ys = roi_poly[:, 0], roi_poly[:, 1]
+            x0 = max(0, int(np.floor(xs.min())) - 5)
+            x1 = min(W, int(np.ceil(xs.max())) + 5)
+            y0 = max(0, int(np.floor(ys.min())) - 5)
+            y1 = min(H, int(np.ceil(ys.max())) + 5)
+            # the FA mask of this cell, re-windowed from its tile
+            oy, ox = offs[i]
+            bw = np.zeros((H, W), bool)
+            bw[oy:oy + tile, ox:ox + tile] = labels[i] > 0
+            path = os.path.join(file_dir, f"Cell_{i + 1}.png")
+            save_fa_crop_colormap(
+                img[y0:y1, x0:x1], bw[y0:y1, x0:x1],
+                roi_poly - np.array([x0, y0], float), path,
+                cmap_name=cmap, sb_on=sb_on, sb_len_um=sb_len_um,
+                px_size=cfg.px_size, out_dpi=dpi)
+            written.append(path)
+        log(t("fa_export").format(tag=s_tag, count=len(rois)))
+    return written
 
 
-def save_fa_figs(*args, **kwargs):
-    """Per-stage overview figures with the optional MATLAB boundary
-    overlay: not ported (matplotlib, h5py)."""
-    raise NotImplementedError(
-        f"the FA overview figures are not ported yet: {FIGURES}")
+_YELLOW = (255, 255, 0, 255)
+_MAGENTA = (255, 0, 255, 255)
+
+
+def _autoscaled(values: np.ndarray) -> Tuple[float, float]:
+    """An axis's limits autoscaled to line data: ``nonsingular`` and the 5%
+    margins of ``axes.xmargin`` / ``ymargin``."""
+    from ..report import pilcomp
+
+    if values.size == 0:
+        return nonsingular(np.inf, -np.inf, expander=0.05)
+    x0, x1 = nonsingular(float(values.min()), float(values.max()), expander=0.05)
+    delta = (x1 - x0) * pilcomp.MARGIN
+    return x0 - delta, x1 + delta
+
+
+def fa_fig_layout(H: int, W: int, rois, boundaries, title: str, dpi: int = 150):
+    """The overview figure's geometry as the JAX package's matplotlib figure
+    lays it out: ``figsize=(10, 10 * H / W)`` and ``tight_layout(pad=0.2)``
+    at ``pilcomp.FIG_DPI`` around the axes, the title and the ROI numbers,
+    placed on the line data's autoscaled limits (the image does not exist
+    yet then).  Returns (figsize, the image's aspect-equal box in display
+    pixels at *dpi*, the closed ROI outlines, the ROI centers)."""
+    from ..report import pilcomp
+
+    figsize = (10, 10 * H / W)
+    closed = [np.r_[np.asarray(P, float), np.asarray(P, float)[:1]] for P in rois]
+    paths = closed + [np.asarray(P, float) for P in boundaries]
+    centers = [(float(np.asarray(P, float)[:, 0].mean()),
+                float(np.asarray(P, float)[:, 1].mean())) for P in rois]
+    xs = np.concatenate([P[:, 0] for P in paths]) if paths else np.zeros(0)
+    ys = np.concatenate([P[:, 1] for P in paths]) if paths else np.zeros(0)
+    xlim, ylim = _autoscaled(xs), _autoscaled(ys)
+
+    cell = pilcomp.SUBPLOT_BOX
+    ax = pilcomp.to_px(cell, figsize, pilcomp.FIG_DPI)
+    boxes = [ax, pilcomp.title_layout(ax, title, pilcomp.FIG_DPI, True)[0]]
+    for i, (cx, cy) in enumerate(centers, 1):
+        x = ax[0] + (cx - xlim[0]) / (xlim[1] - xlim[0]) * (ax[2] - ax[0])
+        y = ax[1] + (cy - ylim[0]) / (ylim[1] - ylim[0]) * (ax[3] - ax[1])
+        boxes.append(pilcomp.text_layout(x, y, str(i), 10, pilcomp.FIG_DPI,
+                                         "center", "baseline")[0])
+    sp = pilcomp.tight_params(figsize, [cell], [pilcomp.union(boxes)], pad=0.2)
+    if sp is not None:
+        cell = (sp["left"], sp["bottom"], sp["right"], sp["top"])
+    box = pilcomp.to_px(pilcomp.aspect_box(cell, H / W, figsize[1] / figsize[0]),
+                        figsize, dpi)
+    return figsize, box, closed, centers
+
+
+def _fa_fig_png(img: np.ndarray, rois, fa_mask: np.ndarray, boundaries,
+                title: str, out: str, dpi: int) -> None:
+    """One overview figure (:func:`fa_fig_layout`): on white at *dpi*, the
+    image, the yellow dashed ROI outlines and the magenta dashed
+    *boundaries* clipped to it, the numbers and the title."""
+    from PIL import Image, ImageDraw
+
+    from ..report import pilcomp
+    from ..report.render import colormap_rgba_u8
+
+    H, W = img.shape
+    figsize, box, closed, centers = fa_fig_layout(H, W, rois, boundaries, title, dpi)
+    lo, hi = np.percentile(img, [1, 99])
+    base = colormap_rgba_u8(img, "gray", lo, hi)
+    # the reference's 0.9-alpha red FA overlay composited in u8:
+    # out = 0.9*red + 0.1*base, the pixels of a second imshow layer
+    under = base[fa_mask, :3].astype(np.float32)
+    base[fa_mask, :3] = (0.9 * np.float32([255.0, 51.0, 51.0])
+                         + 0.1 * under + 0.5).astype(np.uint8)
+
+    canvas = Image.new("RGBA", pilcomp.figure_px(figsize, dpi), (255, 255, 255, 255))
+    pilcomp.paste_image(canvas, base, box)
+    axes = pilcomp.ImageAxes(canvas, box, W, H, dpi)
+    for group, rgba in ((closed, _YELLOW), ([np.asarray(P, float) for P in boundaries],
+                                            _MAGENTA)):
+        pilcomp.stamp_lines(canvas, [np.column_stack(axes.to_px(P[:, 0], P[:, 1]))
+                                     for P in group], 1.0, dpi, rgba, clip=box)
+    for i, (cx, cy) in enumerate(centers, 1):
+        x, y = axes.to_px(cx, cy)
+        pilcomp.stamp_label(canvas, float(x), float(y), str(i), 10, dpi, _YELLOW,
+                            "baseline")
+    overlay = Image.new("RGBA", canvas.size, (0, 0, 0, 0))
+    pilcomp.draw_text(ImageDraw.Draw(overlay), canvas.size[1],
+                      pilcomp.title_layout(box, title, dpi)[1], title,
+                      pilcomp.TITLE_PT, dpi, (0, 0, 0, 255))
+    canvas.alpha_composite(overlay)
+    pilcomp.save_canvas_png(canvas, out)
+
+
+def save_fa_figs(
+    img_dir: str,
+    roi_dir: str,
+    out_root: str,
+    cfg: FaConfig,
+    dpi: int = 150,
+    mat_dir: Optional[str] = None,
+    log=print,
+    device="cuda",
+) -> List[str]:
+    """Per-stage overview figures under ``fig/<s_tag>_FA.png`` (the golden
+    tree's BND_FA/fig outputs): the 1/99 percentile gray frame, the detected
+    FA mask as a 0.9-alpha red overlay, the cell outlines and numbers, and
+    the title ``"{s_tag}  alpha=...  thr=...  bg=..."``; with *mat_dir*, the
+    legacy MATLAB boundaries matched by stage tag as magenta dashed lines
+    (FA_Analyzer.py:650-655, 747-749; ``core.roiio`` reads them with h5py,
+    which must then be installed).  Each stage runs ``analyze_image`` on
+    *device* (``"cuda"``, the default, raises without a card; or ``"cpu"``)
+    once more, as the JAX package does."""
+    dev = resolve_device(device)
+    fig_dir = os.path.join(out_root, "fig")
+    os.makedirs(fig_dir, exist_ok=True)
+    written = []
+    for img_path, json_path, s_tag in list_fa_pairs(img_dir, roi_dir, cfg.channel):
+        img = tiffio.read_2d(img_path, squeeze="smallest_axis")
+        rois = _load_rois(json_path)
+        _, thr, bg, extras = analyze_image(img, rois, cfg, device=dev)
+        H, W = img.shape
+        fa_mask = np.zeros((H, W), bool)
+        if extras:
+            tile = extras["tile"]
+            for i, (oy, ox) in enumerate(extras["offsets"]):
+                fa_mask[oy:oy + tile, ox:ox + tile] |= extras["labels"][i] > 0
+        boundaries = []
+        if mat_dir:
+            mat_path = roiio.find_matching_mat(mat_dir, s_tag)
+            if mat_path:
+                boundaries = roiio.load_matlab_boundaries(mat_path)
+        out = os.path.join(fig_dir, f"{s_tag}_FA.png")
+        _fa_fig_png(img, rois, fa_mask, boundaries,
+                    f"{s_tag}  alpha={cfg.alpha}  thr={thr:.1f}  bg={bg:.1f}", out, dpi)
+        written.append(out)
+        log(t("fa_fig").format(path=out))
+    return written
 
 
 _CATS = ("OK", "Large", "Small")

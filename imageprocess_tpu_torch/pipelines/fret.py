@@ -75,6 +75,7 @@ from ..ops.roistats import (
 from ..ops.stats import STAT_FIELDS
 from ..parallel import runner
 from ..report.render import save_fret_images
+from ..timing import HostPhases
 from .intensity import PinnedPool, _bucket, _pack_key, frames_on_host, to_device
 
 t = i18n.t
@@ -524,6 +525,12 @@ def run_fret_batched(
     # recycled decode buffers: finalize()/run_serial() return each pair's
     # (2, H, W) frames and host tiles once nothing reads them
     frame_pool = native.FrameBufferPool()
+    # IP_TIMING=1: the JAX runner's per-phase host wall-time line (ld_*
+    # sum over the prefetch threads; this loader uploads nothing, so
+    # ld_upload stays 0 and the upload is under "upload")
+    tm = HostPhases(("load_wait", "pack", "upload", "fetch", "emit", "xls",
+                     "ld_decode", "ld_scalars", "ld_gather", "ld_upload"),
+                    "[IP_TIMING:fret]")
 
     def _fit_hint(polys, H, W):
         """(tile, n_bucket) of the run's tile hint (set by the first pair)
@@ -566,13 +573,15 @@ def run_fret_batched(
             return None
         t_used, nb_used = fit
         offs = tile_offsets(polys, H, W, t_used)
-        res = native.decode_tiff_batch_hist_tiles(
-            [dpath, apath], 1, np.asarray(offs, np.int32), t_used,
-            pad_tiles=nb_used - len(polys), pool=frame_pool)
+        with tm("ld_decode"):
+            res = native.decode_tiff_batch_hist_tiles(
+                [dpath, apath], 1, np.asarray(offs, np.int32), t_used,
+                pad_tiles=nb_used - len(polys), pool=frame_pool)
         if res is None:
             return None
         both, hists, tiles_np = res
-        scalars = _host_fret_scalars(both[0], both[1], cfg, hists=hists)
+        with tm("ld_scalars"):
+            scalars = _host_fret_scalars(both[0], both[1], cfg, hists=hists)
         lp, valid = _pre_pad(polys, offs, nb_used)
         return kv, (both[0], both[1], polys), scalars, (
             t_used, tiles_np, offs, lp, valid)
@@ -587,19 +596,22 @@ def run_fret_batched(
         if item is not None:
             return item
         key, dpath, apath = kv
-        D, A, polys, hists = load_pair(key, dpath, apath, roi_dir, cfg,
-                                       with_hists=True, pool=frame_pool)
+        with tm("ld_decode"):
+            D, A, polys, hists = load_pair(key, dpath, apath, roi_dir, cfg,
+                                           with_hists=True, pool=frame_pool)
         if not polys or hists is None:
             # no ROIs, or not one native decode of two u16 frames (whose
             # (2, H, W) buffer the batch gathers from): process_pair
             return kv, (D, A, polys), None, None
-        scalars = _host_fret_scalars(D, A, cfg, hists=hists)
+        with tm("ld_scalars"):
+            scalars = _host_fret_scalars(D, A, cfg, hists=hists)
         fit = _fit_hint(polys, *D.shape)
         if fit is None:
             return kv, (D, A, polys), scalars, None
         t_used, nb_used = fit
         offs = tile_offsets(polys, *D.shape, t_used)
-        tiles = gather_tiles(D.base, offs, nb_used, t_used)
+        with tm("ld_gather"):
+            tiles = gather_tiles(D.base, offs, nb_used, t_used)
         return kv, (D, A, polys), scalars, (
             t_used, tiles, offs, *_pre_pad(polys, offs, nb_used))
 
@@ -641,6 +653,15 @@ def run_fret_batched(
     def dispatch(chunk):
         """Build the padded chunk and launch its device step WITHOUT
         synchronizing; None when the chunk can't take the batch step."""
+        with tm("pack"):
+            packed = _pack(chunk)
+        if packed is None:
+            return None
+        with tm("upload"):
+            return _launch(chunk, *packed)
+
+    def _pack(chunk):
+        """The chunk's host arrays at its tile and buckets, or None."""
         all_p = [poly for _, (_, _, polys), *_ in chunk for poly in polys]
         H, W = chunk[0][1][0].shape
         tile = choose_tile(all_p, H, W)
@@ -686,6 +707,11 @@ def run_fret_batched(
             lp_b[bi], val_b[bi] = lp, valid
             bgs_b[bi] = (bgd, bga)
             eps_b[bi] = eps_f
+        return (tiles_buf if cuda else None), tiles_np, lp_b, val_b, bgs_b, eps_b
+
+    def _launch(chunk, tiles_buf, tiles_np, lp_b, val_b, bgs_b, eps_b):
+        """Upload the packed chunk and enqueue its step (on the side stream
+        of a card, with the result's copy to page-locked memory)."""
         if not cuda:
             packed = _step(torch.from_numpy(tiles_np), lp_b, val_b, bgs_b, eps_b)
             return chunk, packed.numpy(), None, ()
@@ -705,12 +731,14 @@ def run_fret_batched(
         chunk, packed, done, staged = rec
         try:  # no side effects yet, so a failure is safe to retry serially
             if done is not None:
-                done.synchronize()
-                packed = packed.numpy()
+                with tm("fetch"):
+                    done.synchronize()
+                    packed = packed.numpy()
         except Exception as e:  # noqa: BLE001
             raise runner.EmitFetchError(str(e)) from e
-        for bi, (kv, (_, _, polys), (_, _, eps_f), _) in enumerate(chunk):
-            _emit_rows(kv, len(polys), packed[bi], eps_f)
+        with tm("emit"):
+            for bi, (kv, (_, _, polys), (_, _, eps_f), _) in enumerate(chunk):
+                _emit_rows(kv, len(polys), packed[bi], eps_f)
         n_done += len(chunk)
         # the chunk's copies are complete: its frames, host tiles and
         # staging buffers can be reused
@@ -743,7 +771,7 @@ def run_fret_batched(
         return it[0] if isinstance(it[1], str) else it[0][0]
 
     if runner.stream_batches(
-        loader, _cur_bs, classify, dispatch, finalize, run_serial,
+        tm.iterate(loader, "load_wait"), _cur_bs, classify, dispatch, finalize, run_serial,
         lambda err: log(t("err_worker").format(key=_err_key(err.item),
                                                error=err.error)),
         cancel=cancel,
@@ -751,8 +779,10 @@ def run_fret_batched(
         log(t("cancelled"))
 
     if cfg.do_xls and rows_all:
-        save_fret_excel(rows_all, os.path.join(out_root, "xls"), cfg.timelapse)
+        with tm("xls"):
+            save_fret_excel(rows_all, os.path.join(out_root, "xls"), cfg.timelapse)
         log(t("fret_saved"))
     elif cfg.do_xls:
         log(t("fret_no_roi"))
+    tm.report()
     return rows_all

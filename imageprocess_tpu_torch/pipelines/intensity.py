@@ -75,6 +75,7 @@ from ..ops.roistats import (
 )
 from ..ops.stats import STAT_FIELDS
 from ..report.render import PanelPngOptions
+from ..timing import HostPhases
 
 t = i18n.t
 ChannelGrammar = naming.ChannelGrammar
@@ -626,6 +627,11 @@ def run_intensity_batched(
     # recycled decode buffers: finalize()/run_serial() return each key's
     # frames and host tiles once nothing reads them
     frame_pool = native.FrameBufferPool()
+    # IP_TIMING=1: the JAX runner's per-phase host wall-time line (ld_*
+    # sum over the prefetch threads; this loader uploads nothing, so
+    # ld_upload stays 0 and the upload is under "upload")
+    tm = HostPhases(("load_wait", "pack", "upload", "fetch", "emit", "xls",
+                     "ld_decode", "ld_bg", "ld_gather", "ld_upload"))
 
     def _fit_hint(polys, H, W):
         """(tile, n_bucket) of the session hint (set by the first key) when
@@ -676,13 +682,15 @@ def run_intensity_batched(
             return None
         t_used, nb_used = fit
         offs = tile_offsets(polys, H, W, t_used)
-        res = native.decode_tiff_batch_hist_tiles(
-            paths, hist_stride, np.asarray(offs, np.int32), t_used,
-            pad_tiles=nb_used - len(polys), pool=frame_pool)
+        with tm("ld_decode"):
+            res = native.decode_tiff_batch_hist_tiles(
+                paths, hist_stride, np.asarray(offs, np.int32), t_used,
+                pad_tiles=nb_used - len(polys), pool=frame_pool)
         if res is None:
             return None
         imgs, hists, tiles_np = res
-        bgs = _host_bg(imgs, chs, cfg, hists)
+        with tm("ld_bg"):
+            bgs = _host_bg(imgs, chs, cfg, hists)
         lp, valid = _pre_pad(polys, offs, nb_used)
         return key, (stid, (chs, imgs, polys, None)), bgs, (
             t_used, tiles_np, offs, lp, valid)
@@ -697,21 +705,24 @@ def run_intensity_batched(
         if item is not None:
             return item
         key = kv[0]
-        stid, payload, hists = load_key(key, kv[1], roi_dir, cfg,
-                                        hist_stride=hist_stride,
-                                        pool=frame_pool)
+        with tm("ld_decode"):
+            stid, payload, hists = load_key(key, kv[1], roi_dir, cfg,
+                                            hist_stride=hist_stride,
+                                            pool=frame_pool)
         if isinstance(payload, str):
             return key, (stid, payload), None, None
         chs, imgs, polys, _ = payload
         if polys is None or imgs.dtype != np.uint16:  # process_key's keys
             return key, (stid, payload), None, None
-        bgs = _host_bg(imgs, chs, cfg, hists)
+        with tm("ld_bg"):
+            bgs = _host_bg(imgs, chs, cfg, hists)
         fit = _fit_hint(polys, *imgs.shape[1:])
         if fit is None:
             return key, (stid, payload), bgs, None
         t_used, nb_used = fit
         offs = tile_offsets(polys, *imgs.shape[1:], t_used)
-        tiles = gather_tiles(imgs, offs, nb_used, t_used)
+        with tm("ld_gather"):
+            tiles = gather_tiles(imgs, offs, nb_used, t_used)
         return key, (stid, payload), bgs, (
             t_used, tiles, offs, *_pre_pad(polys, offs, nb_used))
 
@@ -771,6 +782,15 @@ def run_intensity_batched(
     def dispatch(chunk):
         """Build the padded chunk and launch its device step WITHOUT
         synchronizing; None when the chunk can't take the batch step."""
+        with tm("pack"):
+            packed = _pack(chunk)
+        if packed is None:
+            return None
+        with tm("upload"):
+            return _launch(chunk, *packed)
+
+    def _pack(chunk):
+        """The chunk's host arrays at its tile and buckets, or None."""
         all_p = [poly for _, _, (_, _, polys, _), *_ in chunk for poly in polys]
         H, W = chunk[0][2][1].shape[1:]
         tile = choose_tile(all_p, H, W)
@@ -817,6 +837,11 @@ def run_intensity_batched(
             lp_b[bi], val_b[bi] = lp, valid
             bgs_b[bi] = bgs_pre if bgs_pre is not None else _host_bg(
                 imgs, chs, cfg)
+        return (tiles_buf if cuda else None), tiles_np, lp_b, val_b, bgs_b
+
+    def _launch(chunk, tiles_buf, tiles_np, lp_b, val_b, bgs_b):
+        """Upload the packed chunk and enqueue its step (on the side stream
+        of a card, with the result's copy to page-locked memory)."""
         if not cuda:
             packed = _step(torch.from_numpy(tiles_np), lp_b, val_b, bgs_b)
             return chunk, packed.numpy(), bgs_b, None, ()
@@ -836,12 +861,14 @@ def run_intensity_batched(
         chunk, packed, bgs, done, staged = rec
         try:  # no side effects yet, so a failure is safe to retry serially
             if done is not None:
-                done.synchronize()
-                packed = packed.numpy()
+                with tm("fetch"):
+                    done.synchronize()
+                    packed = packed.numpy()
         except Exception as e:  # noqa: BLE001
             raise runner.EmitFetchError(str(e)) from e
-        for bi, (key, _, (chs, _, polys, _), *_) in enumerate(chunk):
-            _emit_rows(key, chs, len(polys), packed[bi], bgs[bi])
+        with tm("emit"):
+            for bi, (key, _, (chs, _, polys, _), *_) in enumerate(chunk):
+                _emit_rows(key, chs, len(polys), packed[bi], bgs[bi])
         n_done += len(chunk)
         # the chunk's copies are complete: its frames, host tiles and
         # staging buffers can be reused
@@ -872,7 +899,7 @@ def run_intensity_batched(
         return "batch", (key, stid, payload, bgs_pre, pre)
 
     was_cancelled = stream_batches(
-        loader, _cur_bs, classify, dispatch, finalize, run_serial,
+        tm.iterate(loader, "load_wait"), _cur_bs, classify, dispatch, finalize, run_serial,
         lambda err: log(t("err_worker").format(key=err.item[0],
                                                error=err.error)),
         cancel=cancel,
@@ -883,5 +910,7 @@ def run_intensity_batched(
     if cfg.do_xls and rows_all:
         xls_dir = os.path.join(out_root, "xls")
         os.makedirs(xls_dir, exist_ok=True)
-        save_intensity_excel(rows_all, keymap, xls_dir)
+        with tm("xls"):
+            save_intensity_excel(rows_all, keymap, xls_dir)
+    tm.report()
     return rows_all

@@ -41,10 +41,10 @@ only then; with ``do_png`` and the annulus also the corrected numerator and
 denominator, from which each crop's ratio is rebuilt) and
 ``report.render.save_nesprin2_images`` writes the full and rim-masked
 float32 TIFFs and the full, crop and intensity-crop PNGs (the intensity
-channel's frame is read only for them); the batched runner hands such a
-config to the serial one.  ``save_panel`` (with ``do_png``) raises
-``NotImplementedError`` before a file is read, naming
-``report.render.FIGURES``, and so does ``mesh=``, naming ``MULTI_DEVICE``.
+channel's frame is read only for them), and with ``save_panel`` the 2-up
+intensity / ratio panel under ``PNG/panel``; the batched runner hands such
+a config to the serial one.  ``mesh=`` raises ``NotImplementedError``
+before a file is read, naming ``MULTI_DEVICE``.
 """
 
 from __future__ import annotations
@@ -74,7 +74,7 @@ from ..ops.ratio import clip_ratio_to_nan, ratio_with_eps, spectral_correct
 from ..ops.roistats import choose_tile, pad_local_polys, tile_offsets
 from ..ops.stats import STAT_FIELDS
 from ..parallel import runner
-from ..report.render import FIGURES, save_nesprin2_images
+from ..report.render import save_nesprin2_images
 from .intensity import PinnedPool, _bucket, frames_on_host, to_device
 
 t = i18n.t
@@ -572,13 +572,6 @@ def nesprin2_dirs(out_root: str) -> Dict[str, str]:
     }
 
 
-def _refuse_unported(cfg: Nesprin2Config) -> None:
-    """``save_panel`` is the one image output not ported."""
-    if cfg.do_png and cfg.save_panel:
-        raise NotImplementedError(
-            f"save_panel (the intensity / ratio panel) is not ported yet: {FIGURES}")
-
-
 def _n2_pairs(folder: str, cfg: Nesprin2Config, log):
     """Discover + subset-filter the (key, donor, acceptor) pairs."""
     files = naming.list_tifs(folder)
@@ -657,7 +650,6 @@ def run_nesprin2_batched(
     from ..report.excel import save_nesprin2_excel
 
     dev = resolve_device(device)
-    _refuse_unported(cfg)
     if mesh is not None:
         raise NotImplementedError(
             f"sharding over a device mesh is not ported yet: {MULTI_DEVICE}")
@@ -824,7 +816,6 @@ def run_nesprin2(
     from ..report.excel import save_nesprin2_excel
 
     dev = resolve_device(device)
-    _refuse_unported(cfg)
     out_root = out_root or os.path.join(folder, "RES")
     dirs = nesprin2_dirs(out_root)
     roi_dir = os.path.join(folder, "roi")

@@ -9,13 +9,18 @@ the JAX package lays out with matplotlib and ``pilcomp.stamp_colorbar``
 draws to visual parity (the rect, 256 gradient bands, white outline,
 endpoint ticks and labels).  PNGs are written as 8-bit RGB.
 
+The figures that the JAX package lays out with matplotlib -- the rim-FRET
+2-up panel (``save_panel_intensity_ratio``) and the FA crop PNGs
+(``save_fa_crop_colormap``) -- are drawn with the layout primitives of
+``report.pilcomp`` after matplotlib's geometry (``tight_layout``, the side
+colorbar, ``inset_axes``, dashed lines) and the automatic ticks of
+``report.ticks``.  Where a JAX function takes a matplotlib axes, the port
+takes a ``pilcomp.ImageAxes``: the canvas and the image's box on it.
+
 The frames arrive as host arrays: the runners copy them from the device
 only when ``do_tif`` or ``do_png`` is on.  Percentiles are taken on the host
 with ``np.percentile``, so a preview or a PNG is bit-equal to the JAX
 package's for the same frame.
-
-Not ported: the matplotlib-laid-out figures (``save_panel_intensity_ratio``
-and the FA figures raise, naming ``FIGURES``).
 """
 
 from __future__ import annotations
@@ -29,8 +34,6 @@ import numpy as np
 from ..core import tiffio
 from ..geom.rasterize import rasterize_polygon_np
 from . import cmaps
-
-FIGURES = "the figures that matplotlib lays out (ROADMAP Queue 1 item 14d)"
 
 COLOR_CHOICES = ["Cyan", "Yellow", "Green", "Red", "Blue", "Magenta", "Grayscale"]
 CMAP_CHOICES = ["jet", "turbo", "viridis", "plasma", "magma", "inferno", "cividis"]
@@ -125,6 +128,43 @@ def scalebar_spec(img_w: int, img_h: int, scalebar_um: float, px_um: float,
     )
 
 
+_WHITE = (255, 255, 255, 255)
+_BLACK = (0, 0, 0, 255)
+
+
+def draw_scalebar(ax, img_w, img_h, bar_px, bar_um, lw=3, anchor="br",
+                  font_size=10):
+    """A white scalebar with a boxed label on *ax*, a ``pilcomp.ImageAxes``
+    (the JAX function's matplotlib axes: the canvas and the image's box);
+    geometry from :func:`scalebar_spec`."""
+    spec = scalebar_spec(img_w, img_h, bar_um, bar_um / max(bar_px, 1), anchor)
+    _paint_scalebar(ax, spec, lw=lw, font_size=font_size)
+
+
+def _paint_scalebar(ax, spec: ScalebarSpec, lw=3, font_size=10):
+    """The bar (*lw* points, projecting caps, clipped to the axes) and the
+    label over a 40%-alpha black box 1 point around its layout box, on a
+    ``pilcomp.ImageAxes``."""
+    from . import pilcomp
+
+    y = ax.to_px(0.0, spec.y)[1]
+    pilcomp.stamp_bar(ax.canvas, (ax.to_px(spec.x0, 0.0)[0], y),
+                      (ax.to_px(spec.x1, 0.0)[0], y), lw, ax.dpi, _WHITE, clip=ax.box)
+    x, ly = ax.to_px((spec.x0 + spec.x1) / 2, spec.label_y)
+    pilcomp.stamp_label(ax.canvas, float(x), float(ly), spec.label, font_size, ax.dpi,
+                        _WHITE, spec.label_va, box_rgba=(0, 0, 0, 102))
+
+
+def add_short_colorbar(fig, ax, vmin, vmax, cmap="jet", label="Intensity (a.u.)"):
+    """White-on-black inset colorbar with endpoint-only ticks.  *fig* is the
+    canvas and *ax* the ``pilcomp.ImageAxes`` of the borderless image (the
+    JAX function's figure and axes): ``pilcomp.stamp_colorbar`` draws it."""
+    from . import pilcomp
+
+    pilcomp.stamp_colorbar(fig, ax.img_w, ax.img_h, cmaps.lut_u8(cmap), vmin, vmax,
+                           label, dpi=ax.dpi)
+
+
 def colormap_rgba_u8(img2d, cmap="jet", vmin=None, vmax=None, mask=None):
     """Scalar colormapping in numpy: normalize -> LUT index -> (H, W, 4)
     uint8.  *cmap* is a name of the LUT table or a (256, 4) uint8 LUT.
@@ -186,8 +226,8 @@ def save_png_colormap(
                                scalebar_spec(Ws, Hs, scalebar_um, px_um, bar_anchor),
                                font_pt=bar_font, dpi=dpi)
     if show_colorbar and vmin is not None and vmax is not None:
-        pilcomp.stamp_colorbar(canvas, Ws, Hs, cmaps.lut_u8(cmap), vmin, vmax,
-                               cbar_label, dpi=dpi)
+        add_short_colorbar(canvas, pilcomp.ImageAxes(canvas, box, Ws, Hs, dpi),
+                           vmin, vmax, cmap=cmap, label=cbar_label)
     pilcomp.save_canvas_png(canvas, out_path)
 
 
@@ -456,12 +496,113 @@ def save_fret_images(stid, suffix, R_full, union, polys, cfg, dirs) -> None:
                           dpi=cfg.png_dpi, out_px=out_px)
 
 
-def save_panel_intensity_ratio(*args, **kwargs):
-    """The 2-up rim-masked intensity / ratio panel
-    (Nesprin2_FRET_Builder.py:498-530): not ported (matplotlib lays it
-    out)."""
-    raise NotImplementedError(
-        f"the intensity / ratio panel is not ported yet: {FIGURES}")
+_PANEL_FIGSIZE = (6.0, 3.0)
+_PANEL_DPI = 300
+_CB_FRACTION, _CB_PAD, _CB_ASPECT = 0.046, 0.04, 20.0
+_PANEL_CB_LABEL = "FRET ratio"
+
+
+def _panel_axes(sp, W, H, show_colorbar):
+    """The panel's grid cells and active boxes (figure fractions) at the
+    subplot parameters *sp*: two aspect-equal image axes in a 1x2 grid; with
+    the colorbar, ``make_axes_gridspec`` splits the right cell into the
+    image (anchored right) and a box-aspect-20 colorbar ``pad`` to its right
+    (anchored left)."""
+    from . import pilcomp
+
+    fig_aspect = _PANEL_FIGSIZE[1] / _PANEL_FIGSIZE[0]
+    cells = pilcomp.grid_columns((sp["left"], sp["bottom"], sp["right"], sp["top"]),
+                                 2, sp["wspace"])
+    ax0 = pilcomp.aspect_box(cells[0], H / W, fig_aspect)
+    if not show_colorbar:
+        return cells, ax0, pilcomp.aspect_box(cells[1], H / W, fig_aspect), None
+    main, cb = pilcomp.grid_columns(
+        cells[1], 2, 2 * _CB_PAD / (1 - _CB_PAD),
+        [1 - _CB_FRACTION - _CB_PAD, _CB_FRACTION])
+    return (cells, ax0, pilcomp.aspect_box(main, H / W, fig_aspect, (1.0, 0.5)),
+            pilcomp.aspect_box(cb, _CB_ASPECT, fig_aspect, (0.0, 0.5)))
+
+
+def panel_layout(W, H, show_colorbar=True, vmin=0.0, vmax=0.7, spec=None,
+                 titles=("Intensity", "FRET")) -> dict:
+    """The panel's geometry at its 300 dpi in display pixels: ``tight_layout``
+    (pad 1.08) measured at ``pilcomp.FIG_DPI`` around the two image axes,
+    their titles and scalebar labels (*spec*, or None) and the colorbar's
+    ticks and label; then the two image boxes (``"axes"``), the colorbar's
+    box (``"cax"``, None without it) and its ``pilcomp.colorbar_layout``
+    (``"colorbar"``)."""
+    from . import pilcomp
+
+    def boxes_at(sp, at_dpi):
+        cells, ax0, ax1, cax = _panel_axes(sp, W, H, show_colorbar)
+        axes = [pilcomp.to_px(ax, _PANEL_FIGSIZE, at_dpi) for ax in (ax0, ax1)]
+        cpx = None if cax is None else pilcomp.to_px(cax, _PANEL_FIGSIZE, at_dpi)
+        lay = None if cpx is None else pilcomp.colorbar_layout(
+            cpx, vmin, vmax, at_dpi, label=_PANEL_CB_LABEL)
+        return cells, axes, cpx, lay
+
+    sp = dict(zip(("left", "bottom", "right", "top"), pilcomp.SUBPLOT_BOX),
+              wspace=pilcomp.SUBPLOT_WSPACE)
+    cells, axes, cpx, lay = boxes_at(sp, pilcomp.FIG_DPI)
+    tight = []
+    for px, title in zip(axes, titles):
+        parts = [px, pilcomp.title_layout(px, title, pilcomp.FIG_DPI, True)[0]]
+        if spec is not None:
+            x, y = pilcomp.data_to_px(px, W, H)((spec.x0 + spec.x1) / 2, spec.label_y)
+            parts.append(pilcomp.text_layout(float(x), float(y), spec.label, 10,
+                                             pilcomp.FIG_DPI, "center",
+                                             spec.label_va)[0])
+        tight.append(parts)
+    if cpx is not None:
+        tight[1].append(pilcomp.colorbar_tight_box(cpx, lay))
+    sp = pilcomp.tight_params(_PANEL_FIGSIZE, cells, [pilcomp.union(b) for b in tight],
+                              pad=1.08) or sp
+    _, axes, cpx, lay = boxes_at(sp, _PANEL_DPI)
+    return {"axes": axes, "cax": cpx, "colorbar": lay}
+
+
+def save_panel_intensity_ratio(int_img, ratio_img, rim, out_png, px_um,
+                               add_scalebar=False, sb_um=5.0, cmap="turbo",
+                               vmin=0.0, vmax=0.7, show_colorbar=True,
+                               title_left="Intensity", title_right="FRET"):
+    """2-up rim-masked intensity / ratio panel
+    (Nesprin2_FRET_Builder.py:498-530): ``figsize=(6, 3)`` at 300 dpi on
+    white, two titled image axes with an optional scalebar each, the side
+    colorbar "FRET ratio" (``fraction=0.046, pad=0.04``) and
+    ``tight_layout`` (:func:`panel_layout`), as matplotlib lays out the JAX
+    figure."""
+    from PIL import Image, ImageDraw
+
+    from . import pilcomp
+
+    I = np.where(rim, int_img, np.nan)
+    R = np.where(rim, ratio_img, np.nan)
+    ilo, ihi = _p1_p99(I[np.isfinite(I)])
+    H, W = R.shape
+    spec = None
+    if add_scalebar and px_um > 0:
+        bar_px = max(2, min(int(round(sb_um / px_um)), int(0.8 * W)))
+        bar_um = bar_px * px_um
+        spec = scalebar_spec(W, H, bar_um, bar_um / max(bar_px, 1), "br")
+    titles = (title_left, title_right)
+    lay = panel_layout(W, H, show_colorbar, vmin, vmax, spec, titles)
+
+    canvas = Image.new("RGBA", pilcomp.figure_px(_PANEL_FIGSIZE, _PANEL_DPI),
+                       (255, 255, 255, 255))
+    for box, img, cm, lo, hi, title in zip(lay["axes"], (I, R), ("gray", cmap),
+                                           (ilo, vmin), (ihi, vmax), titles):
+        pilcomp.paste_image(canvas, colormap_rgba_u8(img, cm, lo, hi), box)
+        if spec is not None:
+            _paint_scalebar(pilcomp.ImageAxes(canvas, box, W, H, _PANEL_DPI), spec)
+        overlay = Image.new("RGBA", canvas.size, (0, 0, 0, 0))
+        pilcomp.draw_text(ImageDraw.Draw(overlay), canvas.size[1],
+                          pilcomp.title_layout(box, title, _PANEL_DPI)[1], title,
+                          pilcomp.TITLE_PT, _PANEL_DPI, _BLACK)
+        canvas.alpha_composite(overlay)
+    if lay["cax"] is not None:
+        pilcomp.stamp_colorbar_axes(canvas, lay["cax"], lay["colorbar"],
+                                    cmaps.lut_u8(cmap), _PANEL_DPI, _BLACK)
+    pilcomp.save_canvas_png(canvas, out_png)
 
 
 def _p1_p99(vals: np.ndarray):
@@ -502,7 +643,13 @@ def save_nesprin2_images(tag, suffix, R_full, rim, I, polys, cfg, dirs, eps,
             vmin=ilo, vmax=ihi, dpi=300)
 
     if cfg.save_panel:
-        save_panel_intensity_ratio()
+        save_panel_intensity_ratio(
+            I, R_full, rim,
+            os.path.join(dirs["png_panel"], f"{tag}_panel_{suffix}.png"),
+            px_um=cfg.px_um, add_scalebar=cfg.add_scalebar,
+            sb_um=cfg.scale_bar_um, cmap=cfg.cmap_name,
+            vmin=cfg.fret_min, vmax=cfg.fret_max,
+            show_colorbar=cfg.show_colorbar)
 
     if not cfg.save_crop:
         return
@@ -551,6 +698,90 @@ def save_nesprin2_images(tag, suffix, R_full, rim, I, polys, cfg, dirs, eps,
                 I_vis,
                 os.path.join(dirs["png_crop_int_r"], f"{tag}_roi{i}_INT_rim.png"),
                 vmin=ilo2, vmax=ihi2, dpi=300, out_px=out_px)
+
+
+def _fa_crop_lut(cmap_name: str) -> np.ndarray:
+    """The FA crop's colormap: a black -> CSS-colour ramp for a colour
+    name, gray for "grayscale", else the named colormap, jet for a name
+    matplotlib does not know."""
+    low = cmap_name.lower()
+    if low in cmaps.CSS_RGB:
+        return cmaps.css_ramp_lut(low)
+    if low == "grayscale":
+        return cmaps.lut_u8("gray")
+    try:
+        return cmaps.lut_u8(cmap_name)
+    except ValueError:
+        return cmaps.lut_u8("jet")
+
+
+def fa_crop_layout(w, h, out_w=500, out_h=500, out_dpi=600):
+    """(image box, colorbar box) of an FA crop in display pixels: the
+    *w* x *h* crop aspect-equal in the full canvas, and ``inset_axes``'s
+    3% x 40% box at its center right, ``borderpad`` 1 ``legend.fontsize``
+    (10 points) inside it."""
+    from . import pilcomp
+
+    figsize = (out_w / out_dpi, out_h / out_dpi)
+    box = pilcomp.to_px(pilcomp.aspect_box((0.0, 0.0, 1.0, 1.0), h / w,
+                                           figsize[1] / figsize[0]),
+                        figsize, out_dpi)
+    pad = pilcomp.FONT_PT * out_dpi / 72.0
+    cw, ch = 0.03 * (box[2] - box[0]), 0.4 * (box[3] - box[1])
+    x1, yc = box[2] - pad, (box[1] + box[3]) / 2.0
+    return box, (x1 - cw, yc - ch / 2.0, x1, yc + ch / 2.0)
+
+
+def save_fa_crop_colormap(img_crop, mask, roi_poly_crop, out_path,
+                          cmap_name="jet", show_cbar=True,
+                          vmin=None, vmax=None, sb_on=False, sb_len_um=20,
+                          sb_text=True, sb_font=10, px_size=0.112,
+                          out_w=500, out_h=500, out_dpi=600,
+                          roi_lw=0.5, roi_color="gray"):
+    """FA crop export (FA_Analyzer.py:213-264): a black canvas of
+    ``out_w x out_h`` at ``out_dpi``, the FA-mask-only colormap view fitted
+    aspect-equal into it, the dashed ROI outline (0.8 alpha), the bold
+    scalebar, and the ``inset_axes`` colorbar (3% x 40% of the image box,
+    ``loc="center right"``, ``borderpad=1``) with automatic ticks at
+    labelsize 8 -- the JAX figure's geometry, drawn with PIL."""
+    from PIL import Image, ImageColor
+
+    from . import pilcomp
+
+    figsize = (out_w / out_dpi, out_h / out_dpi)
+    canvas = Image.new("RGBA", pilcomp.figure_px(figsize, out_dpi), _BLACK)
+    if vmin is None or vmax is None:
+        valid = img_crop[mask]
+        alo, ahi = ((np.percentile(valid, 1), np.percentile(valid, 99))
+                    if valid.size else (0, 1))
+        vmin = alo if vmin is None else vmin
+        vmax = ahi if vmax is None else vmax
+    lut = _fa_crop_lut(cmap_name)
+    h, w = img_crop.shape
+    box, cax = fa_crop_layout(w, h, out_w, out_h, out_dpi)
+    pilcomp.paste_image(canvas, colormap_rgba_u8(img_crop, lut, vmin, vmax, mask=mask),
+                        box)
+    ax = pilcomp.ImageAxes(canvas, box, w, h, out_dpi)
+    P = np.asarray(roi_poly_crop, np.float64)
+    pilcomp.stamp_lines(canvas, [np.column_stack(ax.to_px(P[:, 0], P[:, 1]))],
+                        roi_lw, out_dpi, ImageColor.getrgb(roi_color)[:3] + (204,),
+                        clip=box)
+    if sb_on and px_size > 0:
+        bar_px = sb_len_um / px_size
+        if bar_px < w:
+            mx, my = int(w * 0.05), int(h * 0.05)
+            x_end = w - mx
+            (xa, y), (xb, _) = ax.to_px(x_end - bar_px, h - my), ax.to_px(x_end, h - my)
+            pilcomp.stamp_bar(canvas, (xa, y), (xb, y), 3, out_dpi, _WHITE, clip=box)
+            if sb_text:
+                x, y = ax.to_px(x_end - bar_px / 2, h - my - max(10, int(0.02 * h)))
+                pilcomp.stamp_label(canvas, float(x), float(y), f"{int(sb_len_um)} µm",
+                                    sb_font, out_dpi, _WHITE, "bottom", bold=True)
+    if show_cbar:
+        pilcomp.stamp_colorbar_axes(
+            canvas, cax, pilcomp.colorbar_layout(cax, vmin, vmax, out_dpi, tick_pt=8),
+            lut, out_dpi, _WHITE)
+    pilcomp.save_canvas_png(canvas, out_path)
 
 
 def save_morphology_images(img, polys, mets, tag, cfg,

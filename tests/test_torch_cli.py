@@ -410,22 +410,12 @@ def test_no_device_flag_fails_without_a_card(cmd, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv, match", [
-    (["nesprin2", "{d}", "--png", "--panel", "--out", "{o}", "--device", "cpu"],
-     "item 14d"),
-    (["nesprin2", "{d}", "--png", "--panel", "--batched", "--out", "{o}",
-      "--device", "cpu"], "item 14d"),
-    (["fa", "{d}", "--roi-dir", "{d}", "--out", "{o}", "--figs", "--device", "cpu"],
-     "item 14d"),
-    (["fa", "{d}", "--roi-dir", "{d}", "--out", "{o}", "--export-crops",
-      "--device", "cpu"], "item 14d"),
-    (["fa", "{d}", "--roi-dir", "{d}", "--out", "{o}", "--figs", "--export-crops",
-      "--batched", "--device", "cpu"], "item 14d"),
     (["draw", "{d}"], "item 15"),
     (["fa-tune", "{d}", "--roi-dir", "{d}", "--out", "{o}"], "item 15"),
 ])
 def test_later_slices_raise_before_any_file(argv, match, tmp_path):
-    """The commands and flags of later slices raise, naming their item,
-    before a file is read or written."""
+    """The commands of later slices raise, naming their item, before a
+    file is read or written."""
     import numpy as np
     from PIL import Image
 
@@ -435,6 +425,101 @@ def test_later_slices_raise_before_any_file(argv, match, tmp_path):
                    NotImplementedError)
     assert match in str(err)
     assert sorted(os.listdir(tmp_path)) == before
+
+
+FA_FIGS = [os.path.join("fig", "S01_FA.png")]
+FA_CROPS = [os.path.join("crops_export", "S01", f"Cell_{c}.png") for c in (1, 2)]
+
+
+@pytest.fixture(scope="module")
+def figure_ds(tmp_path_factory):
+    """One FA stage (a 96 x 120 u16 frame with two cells) and one rim-FRET
+    pair (channels 1 and 2, two ROIs)."""
+    import numpy as np
+
+    from imageprocess_tpu_torch.core import roiio, tiffio
+
+    root = tmp_path_factory.mktemp("figs")
+    rng = np.random.default_rng(3)
+    yy, xx = np.mgrid[0:96, 0:120]
+    frame = rng.normal(500, 30, (96, 120))
+    for cy, cx in [(30, 30), (60, 85)]:
+        frame += 4000.0 * np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / 18.0)
+    cells = [np.array([[10.5, 10.5], [55.5, 12.5], [52.5, 50.5], [12.5, 48.5]]),
+             np.array([[62.5, 40.5], [110.5, 42.5], [108.5, 85.5], [64.5, 84.5]])]
+    for sub, names in (("fa", ["S01_0.tif"]), ("n2", ["S01_1.TIF", "S01_2.TIF"])):
+        (root / sub / "roi").mkdir(parents=True)
+        for name in names:
+            tiffio.write_tiff16(str(root / sub / name), frame.astype(np.uint16))
+        roiio.save_roi_bundle(str(root / sub / "roi" / "S01.json"), "S01", frame.shape,
+                              cells)
+    return root
+
+
+@pytest.mark.parametrize("argv, files", [
+    (["nesprin2", "{n2}", "--donor-ch", "1", "--fret-ch", "2", "--png", "--panel"],
+     [os.path.join("PNG", "panel", "S01_panel_FoverD.png")]),
+    (["nesprin2", "{n2}", "--donor-ch", "1", "--fret-ch", "2", "--png", "--panel",
+      "--batched"], [os.path.join("PNG", "panel", "S01_panel_FoverD.png")]),
+    (["fa", "{fa}", "--roi-dir", "{fa}/roi", "--figs"], FA_FIGS),
+    (["fa", "{fa}", "--roi-dir", "{fa}/roi", "--export-crops"], FA_CROPS),
+    (["fa", "{fa}", "--roi-dir", "{fa}/roi", "--figs", "--export-crops", "--batched"],
+     FA_FIGS + FA_CROPS),
+], ids=["nesprin2-panel", "nesprin2-panel-batched", "fa-figs", "fa-export-crops",
+        "fa-figs-crops-batched"])
+def test_figure_flags_write_the_jax_files(figure_ds, tmp_path, argv, files):
+    """``nesprin2 --png --panel``, ``fa --figs`` and ``fa --export-crops``
+    run after the tables and write the JAX CLI's files under its names
+    (tests/test_torch_figures.py holds their pixels to JAX's)."""
+    from test_torch_tiffout import png_files
+
+    out = tmp_path / "out"
+    argv = [a.format(n2=figure_ds / "n2", fa=figure_ds / "fa") for a in argv]
+    assert tcli.main(argv + ["--out", str(out), "--device", "cpu", "--lang", "en"]) == 0
+    pngs = png_files(out)
+    assert all(f in pngs for f in files), (files, pngs)
+    if argv[0] == "fa":
+        assert [p for p in pngs if not p.startswith("PNG")] == sorted(files)
+        assert (out / "individual_results").is_dir()
+    else:
+        assert sum(p.startswith(os.path.join("PNG", "panel")) for p in pngs) == 1
+
+
+def test_fa_figure_flags_write_the_jax_clis_files(figure_ds, tmp_path):
+    """``fa --figs --export-crops``: the same PNG names and count as the JAX
+    CLI's run on the same input (the rim-FRET panel's are held in
+    tests/test_torch_figures.py)."""
+    from test_torch_tiffout import png_files
+
+    argv = ["fa", str(figure_ds / "fa"), "--roi-dir", str(figure_ds / "fa" / "roi"),
+            "--figs", "--export-crops", "--lang", "en"]
+    assert jcli.main(argv + ["--out", str(tmp_path / "j")]) == 0
+    assert tcli.main(argv + ["--out", str(tmp_path / "t"), "--device", "cpu"]) == 0
+    assert png_files(tmp_path / "t") == png_files(tmp_path / "j") == sorted(FA_FIGS + FA_CROPS)
+
+
+def test_cli_docs_are_fresh(monkeypatch):
+    """docs/CLI_torch.md is generated from the port's argparse tree; a flag
+    change without regenerating (python scripts/gen_cli_docs_torch.py)
+    fails here.  The generator imports no jax."""
+    import ast
+    import importlib.util
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = os.path.join(root, "scripts", "gen_cli_docs_torch.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    mods = {n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)}
+    mods |= {a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names}
+    assert not any(m and (m.split(".")[0] in ("jax", "imageprocess_tpu")) for m in mods)
+    spec = importlib.util.spec_from_file_location("gen_cli_docs_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    # argparse wraps help to $COLUMNS: pin it so the comparison is stable
+    # (render() itself pins the i18n language, which other tests mutate)
+    monkeypatch.setenv("COLUMNS", "80")
+    spec.loader.exec_module(mod)
+    with open(os.path.join(root, "docs", "CLI_torch.md")) as f:
+        assert f.read() == mod.render()
 
 
 def test_devices_2_on_the_cpu_exits_1(tmp_path, capsys):

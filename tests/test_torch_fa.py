@@ -493,14 +493,33 @@ def test_cancel_stops_both_runners(experiment, tmp_path):
 
 
 @pytest.mark.parametrize("what", ["mesh", "save_fa_figs", "export_fa_crops"])
-def test_unported_parts_raise_naming_their_roadmap_item(tmp_path, what):
-    args = (str(tmp_path), str(tmp_path), str(tmp_path / "o"), tfa.FaConfig())
+def test_unported_parts_raise_naming_their_roadmap_item(experiment, tmp_path, what):
+    """``mesh=`` raises naming item 12; the figures run: one overview
+    figure per stage and one crop PNG per cell, under the JAX names
+    (tests/test_torch_figures.py holds their pixels to JAX's).  (The name
+    is kept from when the figures raised too.)"""
     if what == "mesh":
+        args = (str(tmp_path), str(tmp_path), str(tmp_path / "o"), tfa.FaConfig())
         with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
             tfa.run_fa_batched(*args, mesh=object(), device="cpu")
+        return
+    from PIL import Image
+
+    img_dir, roi_dir = experiment
+    logs = []
+    written = getattr(tfa, what)(str(img_dir), str(roi_dir), str(tmp_path / "o"),
+                                 tfa.FaConfig(**CFG), log=logs.append, device="cpu")
+    rel = [os.path.relpath(p, tmp_path / "o") for p in written]
+    if what == "save_fa_figs":
+        assert rel == [os.path.join("fig", f"S{s:02d}_FA.png") for s in range(1, 6)]
+        assert logs == [tfa.t("fa_fig").format(path=p) for p in written]
+        assert all(Image.open(p).size == (1500, 1200) for p in written)
     else:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 14d"):
-            getattr(tfa, what)(*args)
+        assert rel == [os.path.join("crops_export", f"S{s:02d}", f"Cell_{c}.png")
+                       for s in range(1, 6) for c in (1, 2)]
+        assert logs == [tfa.t("fa_export").format(tag=f"S{s:02d}", count=2)
+                        for s in range(1, 6)]
+        assert all(Image.open(p).size == (500, 500) for p in written)
 
 
 def test_entry_points_default_to_the_card(tmp_path, monkeypatch):

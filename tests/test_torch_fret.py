@@ -422,3 +422,30 @@ def test_cuda_run_matches_cpu_run(exp_folder, tmp_path):
     on_cpu = tfret.run_fret_batched(str(exp_folder), cfg, log=lambda *_: None,
                                     batch_size=2, device="cpu")
     _assert_rows_match(on_card, on_cpu)
+
+
+def test_ip_timing_line_has_jax_keys_and_leaves_rows_equal(exp_folder, tmp_path,
+                                                           monkeypatch, capfd):
+    """``IP_TIMING=1``: one ``[IP_TIMING:fret] k=Nms ...`` line on stderr
+    with the JAX runner's keys in its order; rows equal to the run without
+    it; without the variable, no line."""
+    def keys(err):
+        lines = [ln for ln in err.splitlines() if ln.startswith("[IP_TIMING:fret] ")]
+        assert len(lines) == 1, err
+        return [kv.split("=")[0] for kv in lines[0].split(" ", 1)[1].split("  ")]
+
+    kw = dict(donor_ch=1, acceptor_ch=2)
+    monkeypatch.delenv("IP_TIMING", raising=False)
+    plain = tfret.run_fret_batched(str(exp_folder), tfret.FretConfig(**kw),
+                                   out_root=str(tmp_path / "a"), log=lambda *_: None,
+                                   device="cpu")
+    assert "[IP_TIMING" not in capfd.readouterr().err
+    monkeypatch.setenv("IP_TIMING", "1")
+    jfret.run_fret_batched(str(exp_folder), jfret.FretConfig(**kw),
+                           out_root=str(tmp_path / "j"), log=lambda *_: None)
+    want = keys(capfd.readouterr().err)
+    timed = tfret.run_fret_batched(str(exp_folder), tfret.FretConfig(**kw),
+                                   out_root=str(tmp_path / "b"), log=lambda *_: None,
+                                   device="cpu")
+    assert keys(capfd.readouterr().err) == want
+    assert timed == plain

@@ -397,3 +397,34 @@ def test_main_path_on_cpu_launches_no_kernel(timelapse_folder, tmp_path):
         out_root=str(tmp_path), log=lambda *_: None, device="cpu")
     assert len(rows) == 16
     assert tsk.launches["tilestats_u16"] == 0
+
+
+def _timing_keys(err, tag):
+    lines = [ln for ln in err.splitlines() if ln.startswith(tag + " ")]
+    assert len(lines) == 1, err
+    return [kv.split("=")[0] for kv in lines[0][len(tag) + 1:].split("  ")], lines[0]
+
+
+def test_ip_timing_line_has_jax_keys_and_leaves_rows_equal(timelapse_folder, tmp_path,
+                                                           monkeypatch, capfd):
+    """``IP_TIMING=1``: one ``[IP_TIMING] k=Nms ...`` line on stderr with
+    the JAX runner's keys in its order; rows equal to the run without it;
+    without the variable, no line."""
+    kw = dict(channels=(1, 2), timelapse=True)
+    monkeypatch.delenv("IP_TIMING", raising=False)
+    plain = tint.run_intensity_batched(str(timelapse_folder), tint.IntensityConfig(**kw),
+                                       out_root=str(tmp_path / "a"), log=lambda *_: None,
+                                       batch_size=3, device="cpu")
+    assert "[IP_TIMING" not in capfd.readouterr().err
+    monkeypatch.setenv("IP_TIMING", "1")
+    jint.run_intensity_batched(str(timelapse_folder), jint.IntensityConfig(**kw),
+                               out_root=str(tmp_path / "j"), log=lambda *_: None,
+                               batch_size=3)
+    want, _ = _timing_keys(capfd.readouterr().err, "[IP_TIMING]")
+    timed = tint.run_intensity_batched(str(timelapse_folder), tint.IntensityConfig(**kw),
+                                       out_root=str(tmp_path / "b"), log=lambda *_: None,
+                                       batch_size=3, device="cpu")
+    got, line = _timing_keys(capfd.readouterr().err, "[IP_TIMING]")
+    assert got == want and "ld_decode" in got
+    assert all(kv.split("=")[1].endswith("ms") for kv in line.split("  ")[1:])
+    assert timed == plain

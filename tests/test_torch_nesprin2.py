@@ -571,19 +571,37 @@ def test_image_outputs_raise_before_reading(n2_ds, tmp_path, runner, out):
 
 
 def test_save_panel_raises_naming_item_14d(n2_ds, tmp_path):
-    """The intensity / ratio panel is laid out by matplotlib: with
-    ``do_png`` both runners refuse it before a file is read or written."""
+    """With ``do_png`` and ``save_panel`` both runners write the JAX
+    runner's 2-up panel, ``PNG/panel/{tag}_panel_{suffix}.png``, beside
+    each full ratio frame, the same bytes from either runner (the batched
+    one hands the run to the serial one); without ``do_png`` no panel is
+    drawn, in JAX too.  (The name is kept from when the panel raised.)"""
+    from PIL import Image
+    from test_torch_tiffout import png_files
+
     for runner in (tn.run_nesprin2, tn.run_nesprin2_batched):
-        with pytest.raises(NotImplementedError, match="item 14d"):
-            runner(str(n2_ds), tn.Nesprin2Config(donor_ch=1, fret_ch=2, do_png=True,
-                                                 save_panel=True),
-                   out_root=str(tmp_path / "o"), log=lambda *_: None, device="cpu")
-        assert not (tmp_path / "o").exists()
-    # without do_png the panel is never drawn, in JAX too
+        runner(str(n2_ds), tn.Nesprin2Config(donor_ch=1, fret_ch=2, do_png=True,
+                                             do_xls=False, save_full=True,
+                                             save_crop=False, save_panel=True,
+                                             add_scalebar=True),
+               out_root=str(tmp_path / runner.__name__), log=lambda *_: None,
+               device="cpu")
+    names = png_files(tmp_path / "run_nesprin2")
+    assert names == png_files(tmp_path / "run_nesprin2_batched")
+    panels = [n for n in names if n.startswith(os.path.join("PNG", "panel"))]
+    full = [n for n in names if n.startswith(os.path.join("PNG", "FULL_RATIO"))]
+    assert len(panels) == len(full) == 3     # S03 has no ROI file
+    assert sorted(n.replace("_ratio_full_", "_panel_").replace("FULL_RATIO", "panel")
+                  for n in full) == panels
+    for n in panels:
+        a = (tmp_path / "run_nesprin2" / n).read_bytes()
+        assert a == (tmp_path / "run_nesprin2_batched" / n).read_bytes()
+        assert Image.open(tmp_path / "run_nesprin2" / n).size == (1800, 900)
     rows = tn.run_nesprin2(str(n2_ds), tn.Nesprin2Config(donor_ch=1, fret_ch=2, do_xls=False,
                                                          save_panel=True),
-                           log=lambda *_: None, device="cpu")
-    assert len(rows) == 9
+                           out_root=str(tmp_path / "nopng"), log=lambda *_: None,
+                           device="cpu")
+    assert len(rows) == 9 and png_files(tmp_path / "nopng") == []
 
 
 def test_mesh_raises_naming_its_roadmap_item(n2_ds):

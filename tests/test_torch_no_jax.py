@@ -1,10 +1,12 @@
 """The port imports torch and never jax: no port source names ``jax`` or
-the ``imageprocess_tpu`` package, nor pandas, matplotlib or h5py (at module
-level or inside a function), none executes a file of that package, and
+the ``imageprocess_tpu`` package, nor pandas or matplotlib (at module level
+or inside a function), nor h5py at module level (the MATLAB boundary reader
+imports it inside its function), none executes a file of that package, and
 importing its main paths pulls in neither jax, flax, PIL, pandas,
 matplotlib nor h5py (the card's machine is not promised them)."""
 
 import ast
+import importlib.util
 import json
 import os
 import re
@@ -26,22 +28,27 @@ def _port_sources():
 
 
 def _imported(path):
+    """(module name, inside a function) of every absolute import."""
     with open(path, encoding="utf-8") as f:
         tree = ast.parse(f.read(), path)
+    in_function = {id(n) for f in ast.walk(tree)
+                   if isinstance(f, (ast.FunctionDef, ast.AsyncFunctionDef))
+                   for n in ast.walk(f)}
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
-            yield from (a.name for a in node.names)
+            yield from ((a.name, id(node) in in_function) for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            yield node.module
+            yield node.module, id(node) in in_function
 
 
 @pytest.mark.parametrize("path", _port_sources(),
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_no_jax_or_reference_package_import(path):
-    for name in _imported(path):
+    for name, in_function in _imported(path):
         top = name.split(".")[0]
         assert top not in ("jax", "jaxlib", "flax", "optax", "imageprocess_tpu",
-                           "pandas", "matplotlib", "h5py"), (path, name)
+                           "pandas", "matplotlib"), (path, name)
+        assert top != "h5py" or in_function, (path, name)
 
 
 def test_main_path_import_pulls_in_no_jax_pil_pandas():
@@ -78,6 +85,8 @@ def test_main_path_import_pulls_in_no_jax_pil_pandas():
         "import imageprocess_tpu_torch.pipelines.crop\n"
         "import imageprocess_tpu_torch.pipelines.morphology\n"
         "import imageprocess_tpu_torch.report.cmaps\n"
+        "import imageprocess_tpu_torch.report.ticks\n"
+        "import imageprocess_tpu_torch.timing\n"
         "import chip_smoke\n"
         "mods = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'PIL', 'pandas', 'matplotlib', 'h5py', "
@@ -123,14 +132,20 @@ def test_cli_and_doctor_pull_in_no_jax_and_no_pipeline(argv):
 def test_png_outputs_and_the_cropper_run_without_matplotlib(tmp_path):
     """A process in which ``import matplotlib`` fails runs every PNG output
     -- intensity, FRET and rim FRET with ``do_png`` at their defaults (the
-    inset colorbar included), morphology's overlays, the cropper -- and
-    holds no module of matplotlib, jax or the JAX package afterwards."""
+    inset colorbar included), rim FRET's 2-up panel, morphology's overlays,
+    the cropper, the FA overview figures (with the MATLAB overlay where h5py
+    imports) and the FA crop PNGs -- and holds no module of matplotlib, jax
+    or the JAX package afterwards."""
     code = (
         "import json, os, sys\n"
         "sys.modules['matplotlib'] = None   # any import of it fails\n"
+        "try:\n"
+        "    import h5py\n"
+        "except ImportError:\n"
+        "    h5py = None\n"
         "import numpy as np\n"
         "from imageprocess_tpu_torch.core import roiio, tiffio\n"
-        "from imageprocess_tpu_torch.pipelines import crop, fret, intensity, morphology, nesprin2\n"
+        "from imageprocess_tpu_torch.pipelines import crop, fa, fret, intensity, morphology, nesprin2\n"
         f"d = {str(tmp_path)!r}\n"
         "rng = np.random.default_rng(0)\n"
         "for ch in (1, 2):\n"
@@ -144,23 +159,38 @@ def test_png_outputs_and_the_cropper_run_without_matplotlib(tmp_path):
         "fret.run_fret(d, fret.FretConfig(donor_ch=1, acceptor_ch=2, do_png=True),\n"
         "    out_root=os.path.join(d, 'f'), **q)\n"
         "nesprin2.run_nesprin2(d, nesprin2.Nesprin2Config(donor_ch=1, fret_ch=2, do_png=True,\n"
-        "    annulus_on=True), out_root=os.path.join(d, 'n'), **q)\n"
+        "    annulus_on=True, save_panel=True), out_root=os.path.join(d, 'n'), **q)\n"
         "morphology.run_morphology(d, morphology.MorConfig(sel_ch=2),\n"
         "    out_root=os.path.join(d, 'm'), **q)\n"
         "crop.run_crop(d, os.path.join(d, 'roi'), os.path.join(d, 'c'),\n"
         "    crop.CropConfig(channel=2, save_tiff16=True), **q)\n"
+        "mat = None\n"
+        "if h5py is not None:\n"
+        "    mat = os.path.join(d, 'mat')\n"
+        "    os.makedirs(mat)\n"
+        "    with h5py.File(os.path.join(mat, 'BNDb_e1s1.mat'), 'w') as f:\n"
+        "        r = f.create_group('#refs#')\n"
+        "        ref = r.create_dataset('c0', data=P[:, [1, 0]].T).ref\n"
+        "        cell = r.create_dataset('cell0',\n"
+        "                                data=np.array([ref], dtype=h5py.ref_dtype)[:, None])\n"
+        "        f.create_dataset('bdokcc', data=np.array([cell.ref], dtype=h5py.ref_dtype)[:, None])\n"
+        "cfg = fa.FaConfig(channel=2, alpha=1.0)\n"
+        "fa.save_fa_figs(d, os.path.join(d, 'roi'), os.path.join(d, 'a'), cfg,\n"
+        "    mat_dir=mat, **q)\n"
+        "fa.export_fa_crops(d, os.path.join(d, 'roi'), os.path.join(d, 'a'), cfg, **q)\n"
         "pngs = {k: sum(f.endswith('.png') for _, _, fs in os.walk(os.path.join(d, k))\n"
-        "               for f in fs) for k in 'ifnmc'}\n"
+        "               for f in fs) for k in 'ifnmca'}\n"
         "mods = [m for m, mod in sys.modules.items() if mod is not None and\n"
         "        m.split('.')[0] in ('matplotlib', 'jax', 'jaxlib', 'imageprocess_tpu')]\n"
-        "print(json.dumps([pngs, mods]))\n")
+        "print(json.dumps([pngs, mods, mat is not None]))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    pngs, mods = json.loads(res.stdout.strip().splitlines()[-1])
+    pngs, mods, with_mat = json.loads(res.stdout.strip().splitlines()[-1])
     assert mods == []
-    assert pngs == {"i": 4, "f": 2, "n": 5, "m": 2, "c": 1}
+    assert pngs == {"i": 4, "f": 2, "n": 6, "m": 2, "c": 1, "a": 2}
+    assert with_mat == (importlib.util.find_spec("h5py") is not None)
 
 
 # string constants that name the JAX package as a path: "imageprocess_tpu"

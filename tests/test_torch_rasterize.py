@@ -93,3 +93,23 @@ def test_tile_local_shift_exact(rule):
         tile, want = _both(pad_polygons([local], 16), (t, t), rule)
         np.testing.assert_array_equal(tile, want)
         np.testing.assert_array_equal(tile[0], full[i, oy:oy + t, ox:ox + t])
+
+
+@pytest.mark.parametrize("rule", RULES)
+def test_union_and_host_stack_equal_jax(rule):
+    """``rasterize_union`` (device) and ``rasterize_polygons_np`` (host)
+    against the JAX functions on the same polygons: bit-equal."""
+    from imageprocess_tpu.geom.rasterize import rasterize_polygons_np as j_np
+    from imageprocess_tpu.geom.rasterize import rasterize_union as j_union
+    from imageprocess_tpu_torch.geom.rasterize import rasterize_polygons_np as t_np
+    from imageprocess_tpu_torch.geom.rasterize import rasterize_union as t_union
+
+    polys = [SQUARE, TRIANGLE, CONCAVE]
+    pv = pad_polygons(polys)
+    got = t_union(torch.from_numpy(pv), (16, 18), EdgeRule[rule]).numpy()
+    want = np.asarray(j_union(jnp.asarray(pv), (16, 18), JRule[rule]))
+    assert got.dtype == np.bool_ and np.array_equal(got, want) and got.any()
+    got_np = t_np(polys, (16, 18), EdgeRule[rule])
+    assert got_np.shape == (3, 16, 18)
+    assert np.array_equal(got_np, j_np(polys, (16, 18), JRule[rule]))
+    assert np.array_equal(got_np.any(0), got)

@@ -96,7 +96,7 @@ def test_unknown_colormap_raises_naming_the_table():
 
 def test_font_is_matplotlibs_copy_byte_for_byte():
     ttf = os.path.join(os.path.dirname(matplotlib.__file__), "mpl-data", "fonts", "ttf")
-    for name in ("DejaVuSans.ttf", "LICENSE_DEJAVU"):
+    for name in ("DejaVuSans.ttf", "DejaVuSans-Bold.ttf", "LICENSE_DEJAVU"):
         with open(os.path.join(ttf, name), "rb") as f:
             want = hashlib.sha256(f.read()).hexdigest()
         with open(os.path.join(os.path.dirname(tpil.FONT_PATH), name), "rb") as f:
@@ -449,10 +449,25 @@ def test_save_png_image_equals_jax(tmp_path, rgb, scalebar):
     assert (tmp_path / "t" / "x.png").read_bytes() == (tmp_path / "j" / "x.png").read_bytes()
 
 
-def test_save_panel_raises_naming_item_14d():
-    with pytest.raises(NotImplementedError, match="item 14d"):
-        tr.save_panel_intensity_ratio(np.zeros((4, 4)), np.zeros((4, 4)),
-                                      np.ones((4, 4), bool), "never.png", 0.2)
+def test_save_panel_raises_naming_item_14d(tmp_path):
+    """The 2-up panel of a 4 x 4 frame: the JAX figure's 1800 x 900 canvas
+    on white with both image boxes drawn (tests/test_torch_figures.py holds
+    it to matplotlib's).  (The name is kept from when the panel raised.)"""
+    rim = np.ones((4, 4), bool)
+    rim[0] = False
+    tr.save_panel_intensity_ratio(np.arange(16.0).reshape(4, 4), np.full((4, 4), 0.35),
+                                  rim, str(tmp_path / "p.png"), 0.2)
+    got = np.array(Image.open(tmp_path / "p.png"))
+    assert got.shape == (900, 1800, 3)
+    assert (got == 255).all(-1).mean() > 0.3
+    lay = tr.panel_layout(4, 4)
+    for box in lay["axes"]:   # the ratio's turbo colour at 0.35 / 0.7
+        c, r = int((box[0] + box[2]) / 2), int(900 - (box[1] + box[3]) / 2)
+        assert not (got[r, c] == 255).all()
+    mid = cmaps.lut_u8("turbo")[128, :3]
+    box = lay["axes"][1]
+    assert np.array_equal(got[int(900 - (box[1] + box[3]) / 2),
+                              int((box[0] + box[2]) / 2)], mid)
 
 
 # ------------------------------------------------------------------ the inset colorbar

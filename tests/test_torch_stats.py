@@ -433,3 +433,28 @@ def test_cuda_occupancy_query_leaves_large_launches_working(cuda_device):
     torch.cuda.synchronize()
     torch.testing.assert_close(first, again, rtol=0, atol=0, equal_nan=True)
     torch.testing.assert_close(again, want, rtol=M_RTOL, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("case", ["plain", "nan-masked", "flat", "empty"])
+def test_auto_minmax_equals_jax(case):
+    """The display range at the finite masked pixels' 1st / 99th
+    percentiles, its hi > lo guard and the (0, 1) of no pixels: equal to
+    the JAX function's in float32."""
+    rng = np.random.default_rng(9)
+    img = rng.uniform(-50, 4000, (40, 50)).astype(np.float32)
+    mask = None
+    if case == "nan-masked":
+        img[rng.uniform(size=img.shape) < 0.1] = np.nan
+        mask = rng.uniform(size=img.shape) < 0.5
+    elif case == "flat":
+        img[:] = 1234.5
+    elif case == "empty":
+        mask = np.zeros(img.shape, bool)
+    want = jstats.auto_minmax(jnp.asarray(img), 1000, 99000,
+                              None if mask is None else jnp.asarray(mask))
+    got = tstats.auto_minmax(torch.from_numpy(img), 1000, 99000,
+                             None if mask is None else torch.from_numpy(mask))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        assert float(g) == pytest.approx(float(w), rel=1e-6, abs=0)
+    assert float(got[1]) > float(got[0])
