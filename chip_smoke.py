@@ -169,7 +169,8 @@ of which exits non-zero on failure:
    ``crop`` (stage 1), ``roi-auto --backend unet``, ``refine`` (a quarter
    frame) and ``ppt``, each file equal to the direct call's; ``--xprof DIR``
    (a trace that parses as JSON and names the ``roistats_f32`` kernel once
-   per key) and ``doctor --json`` (every check ok but ``mesh``, skipped),
+   per key) and ``doctor --json`` (every check ok, ``mesh`` on a virtual
+   4-shard mesh of the card),
    both as subprocesses;
 17. the figures that the JAX package lays out with matplotlib, drawn with
    PIL: the rim-FRET 2-up panel of ``run_nesprin2`` and
@@ -195,7 +196,7 @@ The last two lines of standard output are one JSON object per line: the
 kernel table (``ms`` per call, ``device_ms`` by graph replay, ``bound_ms``,
 ``bound_by``, ``library_ms`` -- null: no single PyTorch call computes
 masked moments with six exact order statistics -- and
-``launches_per_run``; ``roistats_f32`` also ``launches_serial`` and its
+``launches_per_run``, ``launches_mesh`` (per runner and mesh); ``roistats_f32`` also ``launches_serial`` and its
 ``serial_shapes`` times, ``launches_nesprin2`` and its ``nesprin2_shapes``
 times, ``launches_tiff_outputs``, ``launches_image_outputs``,
 ``launches_figures``; both ``launches_cli``), then ``{"ok": true, "device": {...}}``.  Without
@@ -3046,8 +3047,9 @@ def run_cli_phase(data: str, card_kind: str, direct: dict) -> dict:
       call's on the same input;
     - ``--xprof DIR`` as a subprocess: the trace parses as JSON and names
       the ``roistats_f32`` kernel once per key;
-    - ``doctor --json`` as a subprocess: every check ok but ``mesh``
-      (skipped), ``backend`` naming the card and both kernels."""
+    - ``doctor --json`` as a subprocess: every check ok, ``backend``
+      naming the card and both kernels, ``mesh`` the virtual 4-shard mesh
+      of the card."""
     import contextlib
     import io
 
@@ -3257,9 +3259,10 @@ def run_cli_phase(data: str, card_kind: str, direct: dict) -> dict:
     status = {k: v["status"] for k, v in report["checks"].items()}
     backend = report["checks"]["backend"]["detail"]
     if status != {"deps": "ok", "native": "ok", "numerics": "ok", "write": "ok",
-                  "backend": "ok", "mesh": "skip"} or not report["ok"] \
+                  "backend": "ok", "mesh": "ok"} or not report["ok"] \
             or card_kind not in backend or "tilestats_u16" not in backend \
-            or "roistats_f32" not in backend:
+            or "roistats_f32" not in backend \
+            or "virtual 4-shard cuda mesh" not in report["checks"]["mesh"]["detail"]:
         raise SmokeError(f"CLI doctor: {report}")
     shutil.rmtree(root, ignore_errors=True)
     return {"steps_s": steps, "launches": launches, "files": files,
@@ -3470,6 +3473,270 @@ def run_figures(data: str) -> dict:
                  "s_per_crop": crops_s / (FIG_STAGES * N_ROI),
                  "analyze_s_per_stage": analyze_s}
     shutil.rmtree(root, ignore_errors=True)
+    return res
+
+
+# ------------------------------------------------------------------ the mesh
+
+MESH_SHARDS = 4                      # virtual shards on cuda:0
+MESH_BATCH = 8                       # chunk size: 2 frames per shard
+
+
+def _same_rows(got, want, what: str) -> None:
+    """Two row lists equal, value for value (NaN where NaN)."""
+    if len(got) != len(want):
+        raise SmokeError(f"{what}: {len(got)} rows, want {len(want)}")
+    for a, b in zip(got, want):
+        if list(a) != list(b):
+            raise SmokeError(f"{what}: columns differ")
+        for k, v in b.items():
+            w = a[k]
+            if not (w == v or (isinstance(v, float) and math.isnan(v)
+                               and isinstance(w, float) and math.isnan(w))):
+                raise SmokeError(f"{what}: {k} {w!r} != {v!r} (stage "
+                                 f"{b.get('stage', b.get('Image'))})")
+
+
+def run_mesh_runners(data: str, fa_dir: str) -> dict:
+    """The four batched tables runners, each run three ways on the card --
+    no mesh, ``make_mesh(1)`` and a virtual mesh of ``MESH_SHARDS`` shards
+    on cuda:0 -- at chunk size ``MESH_BATCH``.  Per way a checked run
+    (every tile-step launch held to its plain version on the same device
+    tensors; the launch counts set to 0 just before the run and read just
+    after) and a timed run (counts read again).  The tables equal the
+    no-mesh run's; the launches of ``tilestats_u16`` and ``roistats_f32``
+    equal the chunks times the shards (times two with the annulus) --
+    none on the FA path, which has no hand kernel."""
+    import torch
+
+    from imageprocess_tpu_torch.ops import roi_stats_kernel as rsk
+    from imageprocess_tpu_torch.ops import tile_stats_kernel as tsk
+    from imageprocess_tpu_torch.parallel import runner
+    from imageprocess_tpu_torch.parallel.runner import Mesh, make_mesh
+    from imageprocess_tpu_torch.pipelines import fa, fret, intensity, nesprin2
+
+    workers = max(8, (os.cpu_count() or 1) * 2)
+    logs = []
+    q = dict(log=logs.append, batch_size=MESH_BATCH, prefetch_workers=workers,
+             device="cuda")
+    chunks = -(-N_STAGES // MESH_BATCH)
+    n2_name = "annulus on + QC"
+    runs = {  # name: (run(mesh, out), launches per chunk and shard)
+        "run_intensity_batched": (lambda mesh, out: intensity.run_intensity_batched(
+            data, intensity.IntensityConfig(channels=CHANNELS, do_xls=False),
+            out_root=out, mesh=mesh, **q), {"tilestats_u16": 1, "roistats_f32": 0}),
+        "run_fret_batched": (lambda mesh, out: fret.run_fret_batched(
+            data, fret.FretConfig(donor_ch=CHANNELS[0], acceptor_ch=CHANNELS[1],
+                                  do_xls=False), out_root=out, mesh=mesh, **q),
+            {"tilestats_u16": 0, "roistats_f32": 1}),
+        "run_nesprin2_batched": (lambda mesh, out: nesprin2.run_nesprin2_batched(
+            data, n2_config(n2_name, do_xls=False), out_root=out, mesh=mesh, **q),
+            {"tilestats_u16": 0, "roistats_f32": N2_CONFIGS[n2_name][1]}),
+        "run_fa_batched": (lambda mesh, out: fa.run_fa_batched(
+            fa_dir, os.path.join(fa_dir, "roi"), out, fa_config(do_master_report=False),
+            mesh=mesh, **q), {"tilestats_u16": 0, "roistats_f32": 0}),
+    }
+    meshes = {"no mesh": (None, 1), "make_mesh(1)": (make_mesh(1), 1),
+              f"virtual {MESH_SHARDS}-shard": (Mesh(("cuda:0",) * MESH_SHARDS),
+                                               MESH_SHARDS)}
+    real_t, real_f = runner.batched_tile_stats_step, runner.batched_fret_tile_stats_step
+    errs = {"tilestats_u16": [], "roistats_f32": []}
+
+    def checked_t(tiles, lp, valid, bgs, *, clip_neg=True):
+        out = real_t(tiles, lp, valid, bgs, clip_neg=clip_neg)
+        errs["tilestats_u16"].append(compare_packed(out, tsk.tile_stats_packed_plain(
+            tiles, lp, valid, bgs, clip_neg=clip_neg), "mesh tilestats launch"))
+        return out
+
+    def checked_f(tiles, lp, valid, bgs, eps, *, clip_neg=True, flip=False):
+        out = real_f(tiles, lp, valid, bgs, eps, clip_neg=clip_neg, flip=flip)
+        errs["roistats_f32"].append(compare_packed(out, rsk.fret_tile_stats_packed_plain(
+            tiles, lp, valid, bgs, eps, clip_neg=clip_neg, flip=flip),
+            "mesh FRET launch"))
+        return out
+
+    def counts():
+        return {"tilestats_u16": tsk.launches["tilestats_u16"],
+                "roistats_f32": rsk.launches["roistats_f32"]}
+
+    out = {}
+    for name, (run, per) in runs.items():
+        base = None
+        for label, (mesh, shards) in meshes.items():
+            dest = os.path.join(data, "RES_mesh", name, label.replace(" ", "_"))
+            want = {k: v * chunks * shards for k, v in per.items()}
+            runner.batched_tile_stats_step = checked_t
+            runner.batched_fret_tile_stats_step = checked_f
+            try:
+                with CheckedRoiRows(f"mesh {name} {label}") as chk:
+                    tsk.reset_launches()
+                    rsk.reset_launches()
+                    rows = run(mesh, dest)
+                    torch.cuda.synchronize()
+                    checked = counts()
+            finally:
+                runner.batched_tile_stats_step = real_t
+                runner.batched_fret_tile_stats_step = real_f
+            errs["roistats_f32"].extend(chk.errs)
+            tsk.reset_launches()
+            rsk.reset_launches()
+            t0 = time.perf_counter()
+            rows_t = run(mesh, dest)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = counts()
+            for got in (checked, launches):
+                if got != want:
+                    raise SmokeError(f"{name} ({label}): launches {got}, want {want} "
+                                     f"({chunks} chunks x {shards} shards)")
+            if name == "run_fa_batched":
+                rows = [r for tag in sorted(rows) for r in rows[tag]]
+                rows_t = [r for tag in sorted(rows_t) for r in rows_t[tag]]
+            if base is None:
+                base = rows
+                if len(rows) < N_STAGES:
+                    raise SmokeError(f"{name}: {len(rows)} rows: {logs[-3:]}")
+            _same_rows(rows, base, f"{name} ({label}) vs no mesh")
+            _same_rows(rows_t, base, f"{name} ({label}, timed run) vs no mesh")
+            out[f"{name} ({label})"] = {"rows": len(rows), "wall_s": wall,
+                                         "launches": launches}
+    bad = [line for line in logs if "ERROR" in str(line) or "오류" in str(line)]
+    if bad:
+        raise SmokeError(f"mesh runners logged errors: {bad[:3]}")
+    return {"runs": out, "checked_launches": {k: len(v) for k, v in errs.items()},
+            "max_abs_err": {k: max((e["max_abs_err"] for e in v), default=0.0)
+                            for k, v in errs.items()}}
+
+
+def run_mesh_seg() -> dict:
+    """``label_frame_unet`` on the synthcells frame with the virtual mesh
+    (the tile batch split over the shards, one replica per shard device):
+    after a warm run, turns without / with / with / without the mesh; every
+    label map equals the first; the best seconds of each."""
+    import numpy as np
+    import torch
+
+    from imageprocess_tpu_torch.parallel.runner import Mesh
+    from imageprocess_tpu_torch.segment import auto, cellseg
+
+    frame, _ = seg_frame()
+    model, tile = auto._unet_model(auto.AutoSegConfig(backend="unet"), "cuda")
+    mesh = Mesh(("cuda:0",) * MESH_SHARDS)
+    want = cellseg.label_frame_unet(frame, model, tile=tile, device="cuda")
+    times = {"s": [], "mesh_s": []}
+    for key in ("s", "mesh_s", "mesh_s", "s"):
+        t0 = time.perf_counter()
+        lab = cellseg.label_frame_unet(frame, model, tile=tile, device="cuda",
+                                       mesh=mesh if key == "mesh_s" else None)
+        torch.cuda.synchronize()
+        times[key].append(time.perf_counter() - t0)
+        if not np.array_equal(lab, want):
+            raise SmokeError(f"seg ({key}): labels differ on "
+                             f"{int((lab != want).sum())} pixels from the first run")
+    return {"labels": int(want.max()), **{k: min(v) for k, v in times.items()}}
+
+
+def run_mesh_frame_ops(fa_dir: str) -> dict:
+    """Every ``parallel.spatial`` function on a 1536 x 2048 FA frame split
+    over the virtual mesh (``MESH_SHARDS`` shards of 384 rows) against the
+    port's whole-frame op on the card: masks and labels bit-equal,
+    quantiles and backgrounds equal, the FA mean / deviation within
+    REL_TOL; seconds of each sharded call."""
+    import numpy as np
+    import torch
+
+    from imageprocess_tpu_torch.core import tiffio
+    from imageprocess_tpu_torch.geom.rasterize import rasterize_polygons
+    from imageprocess_tpu_torch.morphology import binary, ccl, edt
+    from imageprocess_tpu_torch.ops.percentile import masked_quantile
+    from imageprocess_tpu_torch.parallel import spatial
+    from imageprocess_tpu_torch.parallel.runner import Mesh
+    from imageprocess_tpu_torch.pipelines.fa import fa_global_stats
+
+    mesh = Mesh(("cuda:0",) * MESH_SHARDS, "rows")
+    dev = torch.device("cuda", 0)
+    img = tiffio.read_2d(os.path.join(fa_dir, f"S01_{FA_CHANNEL}.TIF"), dtype=None)
+    x = torch.from_numpy(img.astype(np.float32)).to(dev)
+    polys = torch.from_numpy(np.stack([p.astype(np.float32) for p in bench_polys()]))
+    cells = rasterize_polygons(polys.to(dev), img.shape).any(dim=0)
+    mu, sd, bg = (float(v) for v in fa_global_stats(img, device="cuda"))
+    blobs = (x > mu + 3.0 * sd) & cells
+    k, rim, a_in, a_out, close_r = 3, 4, 4, 8, 1    # window radii in px
+    sq = np.ones((2 * k + 1, 2 * k + 1), bool)
+    cases = {  # name: (sharded call, whole-frame result)
+        "shard_frame": (lambda: spatial.shard_frame(mesh, img),
+                        torch.from_numpy(img.astype(np.int32)).to(dev)),
+        "sharded_quantile_u16": (lambda: spatial.sharded_quantile_u16(mesh, 1000)(img),
+                                 masked_quantile(x, torch.ones_like(cells), 1000)),
+        "sharded_bg_correct_u16": (
+            lambda: spatial.sharded_bg_correct_u16(mesh, 1000)(img),
+            torch.clamp(x - masked_quantile(x, torch.ones_like(cells), 1000), min=0.0)),
+        "sharded_square_dilation": (lambda: spatial.sharded_square_dilation(mesh, k)(blobs),
+                                    binary.square_dilation(blobs, k)),
+        "sharded_square_erosion": (lambda: spatial.sharded_square_erosion(mesh, k)(cells),
+                                   binary.binary_erosion(cells, sq, True)),
+        "sharded_rim_mask": (lambda: spatial.sharded_rim_mask(mesh, rim)(cells),
+                             edt.rim_mask(cells, rim)),
+        "sharded_annulus_mask": (
+            lambda: spatial.sharded_annulus_mask(mesh, a_in, a_out)(cells),
+            binary.annulus_mask(cells, a_in, a_out)),
+        "sharded_label": (lambda: spatial.sharded_label(mesh, 2, 4096)(blobs),
+                          ccl.label(blobs, 2)),
+        "sharded_remove_small": (lambda: spatial.sharded_remove_small(mesh, 40, 1, 4096)(blobs),
+                                 ccl.remove_small_objects(blobs, 40, 1)),
+        "sharded_closing_disk": (lambda: spatial.sharded_closing_disk(mesh, close_r)(blobs),
+                                 binary.binary_closing_skimage(blobs, binary.disk(close_r))),
+    }
+    out = {}
+    for name, (call, want) in cases.items():
+        t0 = time.perf_counter()
+        got = call()
+        torch.cuda.synchronize()
+        out[name] = time.perf_counter() - t0
+        got = got.gather(dev) if isinstance(got, spatial.RowShards) else got
+        if got.dtype == torch.uint16:
+            got = got.to(torch.int32)
+        if got.shape != want.shape or not torch.equal(
+                got.nan_to_num(-1.0) if got.is_floating_point() else got,
+                want.nan_to_num(-1.0) if want.is_floating_point() else want):
+            raise SmokeError(f"{name} on the mesh differs from the whole-frame op")
+    t0 = time.perf_counter()
+    smu, ssd, sbg = spatial.sharded_fa_stats(mesh)(img)
+    out["sharded_fa_stats"] = time.perf_counter() - t0
+    if sbg != bg or abs(smu - mu) > REL_TOL * abs(mu) or abs(ssd - sd) > REL_TOL * abs(sd):
+        raise SmokeError(f"sharded_fa_stats ({smu}, {ssd}, {sbg}) vs the frame's "
+                         f"({mu}, {sd}, {bg})")
+    t0 = time.perf_counter()
+    lab, thr, sbg = spatial.sharded_fa_segment(mesh, 3.0, 40.0, close_r, 4096)(img, cells)
+    out["sharded_fa_segment"] = time.perf_counter() - t0
+    bw = (x > torch.tensor(mu + 3.0 * sd, dtype=torch.float32)) & cells
+    bw = binary.binary_closing_skimage(ccl.remove_small_objects(bw, 40, 1),
+                                       binary.disk(close_r))
+    if not torch.equal(lab.gather(dev), ccl.label(bw, 2)) or sbg != bg:
+        raise SmokeError("sharded_fa_segment differs from the whole-frame chain")
+    return {"s": out, "components": int(ccl.label(blobs, 2).max()),
+            "rows_per_shard": img.shape[0] // MESH_SHARDS}
+
+
+def run_mesh_paths(data: str, fa_dir: str) -> dict:
+    """The multi-device phase on one card: the runners, the U-Net tile
+    batch and the frame ops on the virtual mesh, and ``make_mesh`` of one
+    card more than the machine has refused."""
+    import torch
+
+    from imageprocess_tpu_torch.parallel.runner import make_mesh
+
+    t0 = time.perf_counter()
+    res = {"runners": run_mesh_runners(data, fa_dir), "seg": run_mesh_seg(),
+           "frame_ops": run_mesh_frame_ops(fa_dir)}
+    n = torch.cuda.device_count()
+    try:
+        make_mesh(n + 1)
+    except ValueError as e:
+        res["refusal"] = str(e)
+    else:
+        raise SmokeError(f"make_mesh({n + 1}) on {n} card(s) did not raise")
+    res["s"] = time.perf_counter() - t0
     return res
 
 
@@ -3862,6 +4129,27 @@ def main(argv) -> int:
           f"stage alone)")
     print(json.dumps({"figures": figs, "card": card}))
     stamp("figures")
+    mesh = run_mesh_paths(data, fa_dir)
+    for name, r in mesh["runners"]["runs"].items():
+        print(f"mesh path ok: {name}: {r['rows']} rows equal to the run without a "
+              f"mesh, launches {r['launches']} (chunks x shards), {r['wall_s']:.4f} s "
+              f"on {card}")
+    mr, ms, mf = mesh["runners"], mesh["seg"], mesh["frame_ops"]
+    print(f"mesh launches checked against the plain versions: {mr['checked_launches']} "
+          f"(max_abs_err={mr['max_abs_err']})")
+    print(f"mesh seg ok: label_frame_unet with the tile batch on {MESH_SHARDS} virtual "
+          f"shards: {ms['labels']} labels equal to the run without a mesh; "
+          f"best {ms['s']:.4f} s without, {ms['mesh_s']:.4f} s with the mesh (turns "
+          f"without / with / with / without after a warm run) on {card}")
+    print(f"mesh frame ops ok: {len(mf['s'])} parallel.spatial functions on "
+          f"{MESH_SHARDS} shards of {mf['rows_per_shard']} rows equal the whole-frame "
+          f"ops ({mf['components']} components, labels bit-equal); seconds on {card}: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in mf["s"].items()))
+    print(f"mesh refusal ok: {mesh['refusal']}")
+    print(f"mesh phase: {mesh['s']:.1f} s on {card}")
+    print(json.dumps({"mesh": {"runs": mr["runs"], "seg": ms, "frame_ops_s": mf["s"],
+                               "phase_s": mesh["s"]}, "card": card}))
+    stamp("mesh")
     workers = max(8, (os.cpu_count() or 1) * 2)
     dec = time_host_decode(data, workers)
     print(f"host share alone on this machine ({os.cpu_count()} cores, "
@@ -3899,7 +4187,8 @@ def main(argv) -> int:
     print(f"total {time.perf_counter() - t_start:.1f} s")
     measured = {
         "tilestats_u16": (res["launches"],
-                          max(res["max_abs_err"], worst["max_abs_err"]), timing),
+                          max(res["max_abs_err"], worst["max_abs_err"],
+                              mesh["runners"]["max_abs_err"]["tilestats_u16"]), timing),
         "roistats_f32": (fres["launches"],
                          max(fres["max_abs_err"], worst_f["max_abs_err"],
                              vres["max_abs_err"],
@@ -3911,12 +4200,18 @@ def main(argv) -> int:
                              *(img[k]["max_abs_err"] for k in ("run_intensity", "run_fret",
                                                                "run_nesprin2")),
                              *(r["max_abs_err"] for r in figs["panel"].values()),
-                             *(tm["max_abs_err"] for tm in serial_times.values())),
+                             *(tm["max_abs_err"] for tm in serial_times.values()),
+                             mesh["runners"]["max_abs_err"]["roistats_f32"]),
                          ftiming),
     }
+    launches_mesh = {kern: {run: v["launches"][kern]
+                            for run, v in mesh["runners"]["runs"].items() if v["launches"][kern]}
+                     for kern in KERNELS}
     extra = {"tilestats_u16": {"launches_cli": {
-        k: v["tilestats_u16"] for k, v in cres["launches"].items() if v["tilestats_u16"]}},
+        k: v["tilestats_u16"] for k, v in cres["launches"].items() if v["tilestats_u16"]},
+        "launches_mesh": launches_mesh["tilestats_u16"]},
              "roistats_f32": {
+        "launches_mesh": launches_mesh["roistats_f32"],
         "launches_serial": {**{k: sr["launches"] for k, sr in serial.items()},
                             "variant_runs": vres["launches"]},
         "serial_shapes": {name: {k: tm[k] for k in (

@@ -17,9 +17,13 @@ and exit codes, run with PyTorch on a card.
 computes takes ``--device`` (default ``cuda``; it raises without a card,
 so a run on the CPU is asked for by name: ``--device cpu``).
 
-Not ported yet, each raising ``NotImplementedError`` before a file is read
-or written: ``--devices N`` above 1 (``device.MULTI_DEVICE``); the
-interactive ``draw`` and ``fa-tune`` (``APPS``).
+``--devices N`` splits the batch axis of the batched runners (and the
+U-Net tile batch of ``roi-auto``) over the first N devices of
+``--device``'s kind (``parallel.runner.make_mesh``); more than that kind
+has exits 1 with the reference's line (the CPU is one device).
+
+Not ported yet, raising ``NotImplementedError`` before a file is read or
+written: the interactive ``draw`` and ``fa-tune`` (``APPS``).
 """
 
 from __future__ import annotations
@@ -92,8 +96,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batched", action="store_true",
                    help="batch frames per device step (tables only)")
     p.add_argument("--devices", type=int, default=1, metavar="N",
-                   help="devices to shard the batch axis over (implies "
-                        "--batched; only 1 is ported)")
+                   help="shard the batch axis over the first N devices of "
+                        "--device's kind (implies --batched)")
     p.add_argument("--all-experiments", action="store_true",
                    help="treat FOLDER as a parent (e.g. ANA/) and run every "
                         "experiment subfolder containing TIFFs")
@@ -143,8 +147,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--subset-stage", type=int, default=None)
     p.add_argument("--subset-time", type=int, default=None)
     p.add_argument("--devices", type=int, default=1, metavar="N",
-                   help="devices to shard the batched tables path over "
-                        "(only 1 is ported)")
+                   help="shard the batched tables path over the first N "
+                        "devices of --device's kind")
     _add_common(p)
 
     p = sub.add_parser("nesprin2", help="nuclear-rim FRET (the Nesprin-2 FRET script)")
@@ -154,8 +158,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "per chunk of pairs; image outputs run the serial "
                         "runner)")
     p.add_argument("--devices", type=int, default=1, metavar="N",
-                   help="devices to shard the batched pair axis over "
-                        "(implies --batched; only 1 is ported)")
+                   help="shard the batched pair axis over the first N "
+                        "devices of --device's kind (implies --batched)")
     p.add_argument("--donor-ch", type=int, default=1)
     p.add_argument("--fret-ch", type=int, default=2)
     p.add_argument("--intensity-ch", type=int, default=3)
@@ -221,8 +225,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="streaming batched runner: prefetch decode + one "
                         "device step per chunk of stages")
     p.add_argument("--devices", type=int, default=1, metavar="N",
-                   help="devices to shard the batched stage axis over "
-                        "(implies --batched; only 1 is ported)")
+                   help="shard the batched stage axis over the first N "
+                        "devices of --device's kind (implies --batched)")
     p.add_argument("--lang", default=None, choices=["en", "ko"])
     _add_device(p)
 
@@ -281,8 +285,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model-type", default="cyto3")
     p.add_argument("--gpu", action="store_true")
     p.add_argument("--devices", type=int, default=1, metavar="N",
-                   help="devices to shard the U-Net tile batch over (unet "
-                        "backend; only 1 is ported)")
+                   help="shard the U-Net tile batch over the first N devices "
+                        "of --device's kind (unet backend; results identical)")
     _add_common(p)
 
     p = sub.add_parser("refine", help="refine rough ROIs (roi_manual_drawer core)")
@@ -348,25 +352,24 @@ def main(argv: Optional[List[str]] = None) -> int:
         log(i18n.t("run_end"))
 
 
-def _devices_ok(args, log) -> bool:
+def _mesh_for(args, log):
     """Validate ``--devices`` against the devices of ``--device``'s kind
-    (the reference's worker-count spinbox): False, with the reference's
-    line, when the request exceeds them (callers exit 1).  A request for
-    more than one device that they could serve raises: sharding is not
-    ported yet, and the run never drops to one device silently."""
+    and build the 1-D mesh the batched runners shard over (the
+    reference's worker-count spinbox, Fluor_INT.py:2211-2213).  Returns
+    ``(ok, mesh)`` -- ok is False, with the reference's line, when the
+    request exceeds the hardware (callers exit 1); mesh is None for
+    single-device runs."""
     if args.devices <= 1:
-        return True
+        return True, None
     import torch
 
     n_avail = torch.cuda.device_count() if args.device.type == "cuda" else 1
     if args.devices > n_avail:
         log(i18n.t("cli_devices_error").format(n=args.devices, avail=n_avail))
-        return False
-    from .device import MULTI_DEVICE
+        return False, None
+    from .parallel.runner import make_mesh
 
-    raise NotImplementedError(
-        f"--devices {args.devices}: sharding over several devices is not "
-        f"ported yet: {MULTI_DEVICE}")
+    return True, make_mesh(args.devices, device=args.device)
 
 
 def _parse_ch_map(specs, value_type, flag: str, shape: str) -> dict:
@@ -448,14 +451,16 @@ def _dispatch(args, log) -> int:
                 from .core.runlog import RunLogger
                 from .pipelines.intensity import run_intensity_batched
 
-                if not _devices_ok(args, log):
+                ok, mesh = _mesh_for(args, log)
+                if not ok:
                     return 1
                 # RES/logs/run_*.txt with [START]/[END], as the serial runner
                 res_root = out_root or os.path.join(folder, "RES")
                 logger = RunLogger(os.path.join(res_root, "logs"), echo=log)
                 try:
                     rows += run_intensity_batched(folder, cfg, out_root=out_root,
-                                                  log=logger, device=args.device)
+                                                  log=logger, mesh=mesh,
+                                                  device=args.device)
                 finally:
                     logger.close()
             else:
@@ -503,12 +508,13 @@ def _dispatch(args, log) -> int:
             scale_bar_um=args.scalebar_um,
             subset_stage=args.subset_stage, subset_time=args.subset_time,
         )
-        if not _devices_ok(args, log):
+        ok, mesh = _mesh_for(args, log)
+        if not ok:
             return 1
         # tables-only runs take the batched path; image outputs run the
         # serial runner
         run_fret_batched(args.folder, cfg, out_root=args.out, log=log,
-                         device=args.device)
+                         mesh=mesh, device=args.device)
         return 0
 
     if args.cmd == "nesprin2":
@@ -545,10 +551,11 @@ def _dispatch(args, log) -> int:
             subset_stage=args.subset_stage, subset_time=args.subset_time,
         )
         if args.batched or args.devices > 1:
-            if not _devices_ok(args, log):
+            ok, mesh = _mesh_for(args, log)
+            if not ok:
                 return 1
             run_nesprin2_batched(args.folder, cfg, out_root=args.out,
-                                 log=log, device=args.device)
+                                 log=log, mesh=mesh, device=args.device)
         else:
             run_nesprin2(args.folder, cfg, out_root=args.out, log=log,
                          device=args.device)
@@ -567,10 +574,11 @@ def _dispatch(args, log) -> int:
             master_name=args.master_name,
         )
         if args.batched or args.devices > 1:
-            if not _devices_ok(args, log):
+            ok, mesh = _mesh_for(args, log)
+            if not ok:
                 return 1
             run_fa_batched(args.img_dir, args.roi_dir, args.out, cfg,
-                           log=log, device=args.device)
+                           log=log, mesh=mesh, device=args.device)
         else:
             run_fa_batch(args.img_dir, args.roi_dir, args.out, cfg, log=log,
                          device=args.device)
@@ -610,7 +618,8 @@ def _dispatch(args, log) -> int:
     if args.cmd == "roi-auto":
         from .segment.auto import AutoSegConfig, run_auto_drawer
 
-        if not _devices_ok(args, log):
+        ok, _ = _mesh_for(args, log)
+        if not ok:
             return 1
         cfg = AutoSegConfig(
             backend=args.backend, channel=args.channel,

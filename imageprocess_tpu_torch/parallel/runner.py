@@ -1,25 +1,287 @@
-"""Batched execution on one device, and the host streaming protocol.
+"""Batched and sharded execution, and the host streaming protocol.
 
-Port of ``imageprocess_tpu/parallel/runner.py``: ``batched_tile_stats_step``
-(the minimum-transfer intensity step), its FRET counterpart
-``batched_fret_tile_stats_step`` and the pure-Python protocol shared
-by the batched runners — ``stream_batches``, ``PrefetchLoader``,
-``make_autoscaler``, ``LoadError`` and ``EmitFetchError`` — unchanged.
-Mesh and sharding code wait for the multi-device slice.
+Port of ``imageprocess_tpu/parallel/runner.py``: the mesh (``Mesh``,
+``make_mesh``, ``round_batch_to_mesh``), the batched steps
+(``batched_intensity_step(_tiled)``, the minimum-transfer
+``batched_tile_stats_step`` and its FRET counterpart
+``batched_fret_tile_stats_step``), their sharded forms and the
+pure-Python protocol shared by the batched runners — ``stream_batches``,
+``PrefetchLoader``, ``make_autoscaler``, ``LoadError`` and
+``EmitFetchError`` — unchanged.
+
+One process drives the mesh, as one JAX controller drives its devices.
+A mesh is a tuple of ``torch.device`` and an axis name.  A sharded step
+splits the batch axis into equal, contiguous blocks, one per device, as
+``P(axis)`` lays them out, and runs the single-device step on each block
+on its own device (:func:`dispatch_shards`): every shard's step of a chunk
+is enqueued before any result is fetched, so the cards of a mesh work at
+the same time, and each block comes back to the host straight from its
+own device (:func:`fetch_shards`), in batch order.  A *virtual* mesh
+repeats one device, ``Mesh((dev,) * n)``: the counterpart of JAX's
+virtual CPU devices, it runs every sharded path on one card or the CPU.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
 from collections import deque
-from typing import Callable, Iterator, List, Sequence
+from typing import Callable, Iterator, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..ops.roi_stats_kernel import (
     fret_tile_stats_packed, fret_tile_stats_packed_plain,
 )
 from ..ops.tile_stats_kernel import tile_stats_packed, tile_stats_packed_plain
+
+
+class Mesh:
+    """A 1-D device mesh: *devices* in shard order and the axis' name,
+    with JAX's ``shape`` and ``axis_names`` for the callers that read
+    them.  A device may repeat (a virtual mesh)."""
+
+    def __init__(self, devices, axis_name: str = "batch"):
+        devs = []
+        for d in devices:
+            d = torch.device(d)
+            if d.type == "cuda" and d.index is None and torch.cuda.is_available():
+                d = torch.device("cuda", torch.cuda.current_device())
+            devs.append(d)
+        if not devs:
+            raise ValueError("a mesh needs at least one device")
+        self.devices = tuple(devs)
+        self.axis_name = axis_name
+
+    @property
+    def axis_names(self):
+        return (self.axis_name,)
+
+    @property
+    def shape(self):
+        return {self.axis_name: len(self.devices)}
+
+    def __repr__(self) -> str:
+        return f"Mesh({[str(d) for d in self.devices]}, {self.axis_name!r})"
+
+
+def make_mesh(n_devices: Optional[int] = None, axis: str = "batch",
+              device="cuda") -> Mesh:
+    """1-D mesh over the first *n_devices* (default: all) devices of
+    *device*'s kind; the CPU is one device.  Raises ``ValueError`` when
+    fewer are present: it never builds a smaller mesh and never falls back
+    to the CPU."""
+    from ..device import resolve_device
+
+    kind = resolve_device(torch.device(device).type).type
+    devs = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+            if kind == "cuda" else [torch.device("cpu")])
+    n = len(devs) if n_devices is None else int(n_devices)
+    if n < 1 or n > len(devs):
+        raise ValueError(
+            f"make_mesh: {n} {kind} devices requested but {len(devs)} present")
+    return Mesh(devs[:n], axis)
+
+
+def round_batch_to_mesh(batch_size: int, mesh) -> int:
+    """Round a runner's chunk size so every mesh-sharded dispatch divides
+    evenly over the mesh's devices (short trailing chunks pad with
+    valid=False lanes instead).  No-op for single-device runs."""
+    if mesh is None:
+        return batch_size
+    n_dev = len(mesh.devices)
+    batch_size = max(batch_size, n_dev)
+    return batch_size - batch_size % n_dev
+
+
+def shard_bounds(mesh: Mesh, batch: int):
+    """[(lo, hi)] of each shard's contiguous block of a *batch*-long axis."""
+    n = len(mesh.devices)
+    if batch % n:
+        raise ValueError(f"a batch of {batch} does not divide over the {n} "
+                         "shards of the mesh")
+    b = batch // n
+    return [(i * b, (i + 1) * b) for i in range(n)]
+
+
+def side_streams(mesh: Mesh) -> dict:
+    """One side stream per distinct CUDA device of *mesh*."""
+    return {d: torch.cuda.Stream(d) for d in mesh.devices if d.type == "cuda"}
+
+
+def _tree_map(fn, x):
+    """*fn* over the tensors of a tensor, a dict or a tuple/list of them."""
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if isinstance(x, dict):
+        return {k: _tree_map(fn, v) for k, v in x.items()}
+    return type(x)(_tree_map(fn, v) for v in x)
+
+
+def _tree_cat(blocks):
+    """Concatenate the shards' host trees along the batch axis."""
+    first = blocks[0]
+    if len(blocks) == 1:
+        return first
+    if isinstance(first, torch.Tensor):
+        return torch.cat(blocks)
+    if isinstance(first, dict):
+        return {k: _tree_cat([b[k] for b in blocks]) for k in first}
+    return type(first)(_tree_cat([b[i] for b in blocks])
+                       for i in range(len(first)))
+
+
+def to_shard(x, dev: torch.device) -> torch.Tensor:
+    """A numpy array or tensor as a tensor on *dev*: non-blocking onto a
+    card (stream-ordered; asynchronous from page-locked memory), blocking
+    onto the host; u16 travels as int16 storage."""
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    if x.device == dev:
+        return x
+    u16 = x.dtype == torch.uint16
+    out = (x.view(torch.int16) if u16 else x).to(dev, non_blocking=dev.type == "cuda")
+    return out.view(torch.uint16) if u16 else out
+
+
+def dispatch_shards(mesh: Mesh, run_block: Callable, batch: int, *,
+                    staging=None, streams: Optional[dict] = None) -> list:
+    """Enqueue every shard's step of one chunk, fetching nothing.
+
+    ``run_block(dev, lo, hi)`` moves lanes ``lo:hi`` of the chunk to
+    *dev* and returns the step's output there (a tensor, or a dict or
+    tuple of them); it runs with *dev* current and, on a card, on the
+    device's side stream from *streams* (default: its current stream).
+    Each shard's output starts its copy to the host at once, into
+    page-locked buffers (of the *staging* pool when given), and a CUDA
+    event marks it done.  Returns ``[(host tree, event or None)]`` in
+    shard order, for :func:`fetch_shards`."""
+    parts = []
+    for dev, (lo, hi) in zip(mesh.devices, shard_bounds(mesh, batch)):
+        if dev.type != "cuda":
+            parts.append((run_block(dev, lo, hi), None))
+            continue
+        stream = (streams or {}).get(dev) or torch.cuda.current_stream(dev)
+        with torch.cuda.device(dev), torch.cuda.stream(stream):
+            out = run_block(dev, lo, hi)
+
+            def to_host(x):
+                host = (staging.get(tuple(x.shape), x.dtype) if staging is not None
+                        else torch.empty(x.shape, dtype=x.dtype, pin_memory=True))
+                host.copy_(x, non_blocking=True)
+                return host
+
+            host = _tree_map(to_host, out)
+            done = torch.cuda.Event()
+            done.record(stream)
+        parts.append((host, done))
+    return parts
+
+
+def fetch_block(host, done):
+    """One shard's host tree, once its copy has landed."""
+    if done is not None:
+        done.synchronize()
+    return host
+
+
+def fetch_shards(parts):
+    """The shards' results of :func:`dispatch_shards` on the host, in
+    batch order: each block read straight from its own device's copy."""
+    return _tree_cat([fetch_block(host, done) for host, done in parts])
+
+
+def run_sharded(mesh: Mesh, step: Callable, *args, **kwargs):
+    """``step(*blocks, **kwargs)`` on each shard's block of every argument
+    (numpy arrays or tensors, split along the batch axis and moved to the
+    shard's device), all shards enqueued before any is fetched; the
+    results on the host, in batch order."""
+    def block(dev, lo, hi):
+        return step(*(to_shard(a[lo:hi], dev) for a in args), **kwargs)
+
+    return fetch_shards(dispatch_shards(mesh, block, len(args[0])))
+
+
+def batched_intensity_step(
+    imgs,                    # (B, C, H, W) raw u8 / u16 / float
+    polys,                   # (B, N, V, 2) float32
+    roi_valid,               # (B, N) bool
+    p1000s,                  # (B, C) int
+    *,
+    bg_mode: str = "percentile",
+    bg_scope: str = "full",
+    clip_neg: bool = True,
+    bg_stride: int = 4,
+):
+    """The whole batch through ``pipelines.intensity.intensity_step``
+    (the production program, frame by frame, where JAX vmaps it): (stats
+    {field: (B, C, N)}, area (B, N), bgs (B, C))."""
+    from ..pipelines.intensity import intensity_step
+
+    outs = [intensity_step(imgs[b], polys[b], roi_valid[b],
+                           [int(p) for p in p1000s[b]], bg_mode=bg_mode,
+                           bg_scope=bg_scope, clip_neg=clip_neg,
+                           bg_stride=bg_stride)[:3]
+            for b in range(len(imgs))]
+    return _stack_outputs(outs)
+
+
+def _stack_outputs(outs):
+    """[(stats, area, bgs)] per frame -> the batch's (stats, area, bgs)."""
+    stats = {f: torch.stack([o[0][f] for o in outs]) for f in outs[0][0]}
+    return (stats, torch.stack([o[1] for o in outs]),
+            torch.stack([o[2] for o in outs]))
+
+
+def sharded_intensity_step(mesh: Mesh, *, bg_mode: str = "percentile",
+                           bg_scope: str = "full", clip_neg: bool = True,
+                           bg_stride: int = 4) -> Callable:
+    """:func:`batched_intensity_step` with its batch axis split over
+    *mesh* (batch size a multiple of the mesh size); the results on the
+    host."""
+    def run(imgs, polys, roi_valid, p1000s):
+        return run_sharded(mesh, batched_intensity_step, imgs, polys, roi_valid,
+                           p1000s, bg_mode=bg_mode, bg_scope=bg_scope,
+                           clip_neg=clip_neg, bg_stride=bg_stride)
+
+    return run
+
+
+def batched_intensity_step_tiled(
+    imgs,                    # (B, C, H, W) raw u16 / f32
+    local_polys,             # (B, N, V, 2) tile-local
+    offsets,                 # (B, N, 2)
+    roi_valid,               # (B, N)
+    p1000s,                  # (B, C)
+    *,
+    tile: int,
+    bg_mode: str = "percentile",
+    clip_neg: bool = True,
+    bg_stride: int = 4,
+):
+    """The whole batch through ``pipelines.intensity.intensity_step_tiled``,
+    frame by frame: (stats {field: (B, C, N)}, area (B, N), bgs (B, C))."""
+    from ..pipelines.intensity import intensity_step_tiled
+
+    outs = [intensity_step_tiled(imgs[b], local_polys[b], offsets[b],
+                                 roi_valid[b], [int(p) for p in p1000s[b]],
+                                 tile=tile, bg_mode=bg_mode, clip_neg=clip_neg,
+                                 bg_stride=bg_stride)[:3]
+            for b in range(len(imgs))]
+    return _stack_outputs(outs)
+
+
+def sharded_batched_intensity_tiled(mesh: Mesh, *, tile: int,
+                                    bg_mode="percentile", clip_neg=True,
+                                    bg_stride=4) -> Callable:
+    """:func:`batched_intensity_step_tiled` with its batch axis split over
+    *mesh* (batch size a multiple of the mesh size)."""
+    def run(imgs, local_polys, offsets, roi_valid, p1000s):
+        return run_sharded(mesh, batched_intensity_step_tiled, imgs, local_polys,
+                           offsets, roi_valid, p1000s, tile=tile, bg_mode=bg_mode,
+                           clip_neg=clip_neg, bg_stride=bg_stride)
+
+    return run
 
 
 def batched_tile_stats_step(
@@ -43,6 +305,17 @@ def batched_tile_stats_step(
                                        clip_neg=clip_neg)
     return tile_stats_packed(tiles, local_polys, roi_valid, bgs,
                              clip_neg=clip_neg)
+
+
+def sharded_batched_tile_stats(mesh: Mesh, *, clip_neg=True) -> Callable:
+    """:func:`batched_tile_stats_step` with the batch axis split over
+    *mesh*: one kernel launch per shard, on the shard's device; the packed
+    (B, 10, C, N) result on the host."""
+    def run(tiles, local_polys, roi_valid, bgs):
+        return run_sharded(mesh, batched_tile_stats_step, tiles, local_polys,
+                           roi_valid, bgs, clip_neg=clip_neg)
+
+    return run
 
 
 def batched_fret_tile_stats_step(

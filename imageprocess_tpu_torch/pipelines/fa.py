@@ -46,8 +46,11 @@ PNGs (``export_fa_crops``) are drawn with PIL after the JAX package's
 matplotlib geometry (``report.pilcomp``, ``report.render``); each reruns
 ``analyze_image`` per stage, as the JAX package does.
 
-Not ported: ``mesh=``, which raises ``NotImplementedError`` naming its
-ROADMAP item.
+With ``mesh=`` the batched runner splits each chunk's frame axis over
+the mesh's devices (``sharded_fa_batched_step``): every shard's frames go
+up and its step runs on its own device before any result is fetched.  The
+step's CCL reads a convergence flag from the host each round, so on a mesh
+of distinct cards those reads take the shards in turn.
 """
 
 from __future__ import annotations
@@ -63,7 +66,7 @@ import torch
 
 from .. import native
 from ..core import i18n, roiio, tiffio
-from ..device import MULTI_DEVICE, resolve_device
+from ..device import resolve_device
 from ..geom.rasterize import EdgeRule, rasterize_polygons
 from ..morphology import ccl
 from ..morphology.binary import binary_closing_skimage, disk
@@ -248,6 +251,22 @@ def fa_batched_step(
         dim=1)                                          # (B, 5, N, L)
     return torch.cat([pack.reshape(B, -1), torch.stack([m, s, bg, thr], dim=1),
                       over.any(dim=1).to(torch.float32)[:, None]], dim=1)
+
+
+def sharded_fa_batched_step(mesh, *, tile, close_radius, max_labels,
+                            do_remove_small):
+    """:func:`fa_batched_step` with its frame axis split over *mesh*
+    (frames a multiple of the mesh size): ``run(imgs, local_polys,
+    offsets, roi_valid, alpha, min_px)`` runs each shard's block on its
+    device and returns the flat (B, K) table on the host."""
+    def run(imgs, local_polys, offsets, roi_valid, alpha, min_px):
+        return runner.run_sharded(
+            mesh, fa_batched_step, imgs, local_polys, offsets, roi_valid,
+            alpha=float(alpha), min_px=float(min_px), tile=tile,
+            close_radius=close_radius, max_labels=max_labels,
+            do_remove_small=do_remove_small)
+
+    return run
 
 
 def unpack_fa_flat(flat: np.ndarray, nb: int, max_labels: int):
@@ -483,18 +502,19 @@ def run_fa_batched(
     device program (:func:`fa_batched_step`) with one result copy per
     chunk, two chunks in flight.  Stages whose frame shape or ROI geometry
     falls outside the run's hints take the per-image path inline.
-    *device* is ``"cuda"`` (default; raises without a card) or ``"cpu"``."""
+    *device* is ``"cuda"`` (default; raises without a card) or ``"cpu"``.
+    With a *mesh* each chunk's frame axis is split over its devices, and a
+    short trailing chunk pads to the chunk size with zero frames and
+    invalid lanes; stages the batch cannot take run on *device*."""
     dev = resolve_device(device)
-    if mesh is not None:
-        raise NotImplementedError(
-            f"sharding over a device mesh is not ported yet: {MULTI_DEVICE}")
     indiv_dir = os.path.join(out_root, "individual_results")
     os.makedirs(indiv_dir, exist_ok=True)
     pairs = list_fa_pairs(img_dir, roi_dir, cfg.channel)
     results: Dict[str, List[dict]] = {}
     margin = cfg.close_radius + 1
-    cuda = dev.type == "cuda"
-    side = torch.cuda.Stream(dev) if cuda else None
+    shards = mesh if mesh is not None else runner.Mesh((dev,))
+    cuda = any(d.type == "cuda" for d in shards.devices)
+    streams = runner.side_streams(shards)
     staging = PinnedPool() if cuda else None
     frame_pool = native.FrameBufferPool()
 
@@ -508,6 +528,7 @@ def run_fa_batched(
         return s_tag, img, _load_rois(json_path)
 
     loader = runner.PrefetchLoader(_load, pairs, workers=max(1, prefetch_workers))
+    batch_size = runner.round_batch_to_mesh(batch_size, mesh)
     hint: Dict[str, int] = {}
     step_kw = dict(close_radius=int(cfg.close_radius),
                    max_labels=cfg.max_fa_per_cell,
@@ -543,57 +564,55 @@ def run_fa_batched(
         return "batch", item
 
     def dispatch(chunk):
-        """Stack and send the chunk, launch its device program WITHOUT
-        synchronising."""
+        """Stack and send the chunk, launch each shard's device program
+        WITHOUT synchronising."""
         tile, nb, vb = hint["tile"], hint["nb"], hint["vb"]
         B = len(chunk)
+        # on a mesh a short trailing chunk pads to the chunk size with zero
+        # frames and invalid lanes, which give no rows
+        pad_b = batch_size if mesh is not None else B
         H, W = chunk[0][1].shape
-        lp_b = np.zeros((B, nb, vb, 2), np.float32)
-        off_b = np.zeros((B, nb, 2), np.int32)
-        val_b = np.zeros((B, nb), bool)
+        lp_b = np.zeros((pad_b, nb, vb, 2), np.float32)
+        off_b = np.zeros((pad_b, nb, 2), np.int32)
+        val_b = np.zeros((pad_b, nb), bool)
         for bi, (_, _, rois) in enumerate(chunk):
             offs = tile_offsets(rois, H, W, tile, margin=margin)
             lp_b[bi], off_b[bi], val_b[bi] = pad_local_polys(rois, offs, nb, vb)
         held: List[torch.Tensor] = []
-
-        def up(arr):
-            return to_device(arr, dev, staging, held)
-
-        if not cuda:
-            flat = fa_batched_step(
-                up(np.stack([img for _, img, _ in chunk])), up(lp_b), up(off_b),
-                up(val_b), cfg.alpha, cfg.min_px, tile=tile, **step_kw)
-            return chunk, flat.numpy(), None, held
-        with torch.cuda.stream(side):
-            # the frames are copied one by one into one page-locked chunk
-            # buffer (u16 as int16 storage, read as uint16 on the device)
-            dtype = chunk[0][1].dtype
-            u16 = dtype == np.uint16
-            buf = staging.get((B, H, W), torch.from_numpy(
+        # the frames are copied one by one into one chunk buffer,
+        # page-locked on a card (u16 as int16 storage, read as uint16 on
+        # the device)
+        dtype = chunk[0][1].dtype
+        u16 = dtype == np.uint16
+        if cuda:
+            buf = staging.get((pad_b, H, W), torch.from_numpy(
                 np.empty(0, np.int16 if u16 else dtype)).dtype)
-            view = buf.numpy().view(dtype)
-            for bi, (_, img, _) in enumerate(chunk):
-                view[bi] = img
-            imgs_d = buf.to(dev, non_blocking=True)
             held.append(buf)
-            flat = fa_batched_step(
-                imgs_d.view(torch.uint16) if u16 else imgs_d, up(lp_b),
-                up(off_b), up(val_b), cfg.alpha, cfg.min_px, tile=tile,
-                **step_kw)
-            out = staging.get(tuple(flat.shape), torch.float32)
-            out.copy_(flat, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(side)
-        return chunk, out, done, held + [out]
+            view = buf.numpy().view(dtype)
+        else:
+            view = np.empty((pad_b, H, W), dtype)
+            buf = torch.from_numpy(view)
+        for bi, (_, img, _) in enumerate(chunk):
+            view[bi] = img
+        view[B:] = 0
+
+        def block(d, lo, hi):
+            imgs = runner.to_shard(buf[lo:hi], d)
+            return fa_batched_step(
+                imgs.view(torch.uint16) if u16 else imgs,
+                *(runner.to_shard(a[lo:hi], d) for a in (lp_b, off_b, val_b)),
+                cfg.alpha, cfg.min_px, tile=tile, **step_kw)
+
+        parts = runner.dispatch_shards(shards, block, pad_b, staging=staging,
+                                       streams=streams)
+        return chunk, parts, held
 
     def finalize(rec):
         """Wait for a dispatched chunk, write its stages, recycle its host
         buffers."""
-        chunk, flat, done, staged = rec
+        chunk, parts, staged = rec
         try:  # no side effects yet, so a failure is safe to retry serially
-            if done is not None:
-                done.synchronize()
-                flat = flat.numpy()
+            flat = runner.fetch_shards(parts).numpy()
         except Exception as e:  # noqa: BLE001
             raise runner.EmitFetchError(str(e)) from e
         props, n_labels, scal, over = unpack_fa_flat(
@@ -619,6 +638,9 @@ def run_fa_batched(
             frame_pool.put(img.base)  # (1, H, W) decode buffer now dead
         for buf in staged:
             staging.put(buf)
+        for host, done in parts:
+            if done is not None:
+                staging.put(host)
 
     def _err_key(it):
         # the raw (img_path, json_path, s_tag) loader triple on a load

@@ -38,8 +38,10 @@ The batched runner (``run_fret_batched``), per chunk of pairs:
    polygons, forms [ratio, donor, acceptor] and launches the
    ``roistats_f32`` kernel on that stream; one non-blocking copy brings the
    packed (B, 10, 3, N) result back into page-locked memory, and a CUDA
-   event marks the chunk done;
-3. ``finalize`` waits on that event, turns the result into rows
+   event marks the chunk done.  With a ``mesh=`` the chunk's batch axis is
+   split over its devices, one launch per shard, every shard enqueued
+   before any result is fetched (``parallel.runner.dispatch_shards``);
+3. ``finalize`` waits on the events, turns the result into rows
    (``_fret_row``) and only then recycles the chunk's host buffers;
    ``report.excel.save_fret_excel`` writes the tables.
 
@@ -480,12 +482,25 @@ def batched_fret_tile_stats(tiles, local_polys, roi_valid, bgs, eps, *,
     return stats, packed[:, len(STAT_FIELDS), 0].to(torch.int32)
 
 
+def sharded_batched_fret_tile_stats(mesh, *, clip_neg=True, flip=False):
+    """:func:`batched_fret_tile_stats` with its batch axis split over
+    *mesh* (batch size a multiple of the mesh size): one ``roistats_f32``
+    launch per shard, on the shard's device; (stats, area) on the host."""
+    def run(tiles, local_polys, roi_valid, bgs, eps):
+        return runner.run_sharded(mesh, batched_fret_tile_stats, tiles,
+                                  local_polys, roi_valid, bgs, eps,
+                                  clip_neg=clip_neg, flip=flip)
+
+    return run
+
+
 def run_fret_batched(
     folder: str,
     cfg: FretConfig,
     out_root: Optional[str] = None,
     log=print,
     batch_size: int = 4,
+    mesh=None,
     prefetch_workers: int = 8,
     cancel=None,
     device="cuda",
@@ -494,8 +509,12 @@ def run_fret_batched(
     backgrounds + eps, ROI tiles of both channels shipped per chunk, one
     device step and one packed result fetch per chunk, two chunks in
     flight.  *device* is ``"cuda"`` (default; raises without a card) or
-    ``"cpu"`` (the plain PyTorch version, for tests).  Returns the rows in
-    key order.  A config the batch does not cover runs :func:`run_fret`."""
+    ``"cpu"`` (the plain PyTorch version, for tests).  With a *mesh* each
+    chunk's batch axis is split over its devices, one kernel launch per
+    shard, and a short trailing chunk pads to the chunk size with invalid
+    lanes; pairs the batch cannot take run on *device*.  Returns the rows
+    in key order.  A config the batch does not cover runs
+    :func:`run_fret`."""
     from ..ops.roistats import (
         choose_tile, gather_tiles, pad_local_polys, tile_offsets,
     )
@@ -518,8 +537,9 @@ def run_fret_batched(
 
     flip = cfg.ratio_mode != "FRET/Donor"
     d_p, a_p = _channel_ps(cfg)
-    cuda = dev.type == "cuda"
-    side = torch.cuda.Stream(dev) if cuda else None
+    shards = mesh if mesh is not None else runner.Mesh((dev,))
+    cuda = any(d.type == "cuda" for d in shards.devices)
+    streams = runner.side_streams(shards)
     staging = PinnedPool() if cuda else None
     tile_hint: Dict[str, int] = {}
     # recycled decode buffers: finalize()/run_serial() return each pair's
@@ -617,6 +637,7 @@ def run_fret_batched(
 
     loader = runner.PrefetchLoader(_load, pairs, workers=max(1, prefetch_workers),
                                    ahead=32)
+    batch_size = runner.round_batch_to_mesh(batch_size, mesh)
     _cur_bs, _maybe_grow_chunk = runner.make_autoscaler(loader, batch_size)
     rows_all: List[dict] = []
     n_done = 0
@@ -629,14 +650,6 @@ def run_fret_batched(
                 s, t_code, i,
                 lambda f, c, i=i: packed[STAT_FIELDS.index(f), c, i],
                 packed[len(STAT_FIELDS), 0, i], eps_f, cfg, d_p, a_p))
-
-    def _to_device(arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(arr).to(dev, non_blocking=True)
-
-    def _step(tiles_b, lp_b, val_b, bgs_b, eps_b):
-        return runner.batched_fret_tile_stats_step(
-            tiles_b, _to_device(lp_b), _to_device(val_b), _to_device(bgs_b),
-            _to_device(eps_b), clip_neg=cfg.clip_neg, flip=flip)
 
     def run_serial(entry):
         """A pair the batch program can't take: :func:`process_pair`,
@@ -678,11 +691,15 @@ def run_fret_batched(
         vb = vb_hint if vb_hint is not None and max_v <= vb_hint \
             else _bucket(max_v, 32)
         B = len(chunk)
-        lp_b = np.zeros((B, nb, vb, 2), np.float32)
-        val_b = np.zeros((B, nb), bool)
-        bgs_b = np.zeros((B, 2), np.float32)
-        eps_b = np.zeros((B,), np.float32)
-        shape = (B, nb, 2, tile, tile)
+        # on a mesh a short trailing chunk pads to the chunk size (the
+        # padded lanes are invalid and give no rows; eps = 1 keeps their
+        # ratio finite)
+        pad_b = _cur_bs() if mesh is not None else B
+        lp_b = np.zeros((pad_b, nb, vb, 2), np.float32)
+        val_b = np.zeros((pad_b, nb), bool)
+        bgs_b = np.zeros((pad_b, 2), np.float32)
+        eps_b = np.ones((pad_b,), np.float32)
+        shape = (pad_b, nb, 2, tile, tile)
         if cuda:
             # int16 storage read as uint16: the staging buffer is filled
             # through numpy and reinterpreted on the device
@@ -707,33 +724,34 @@ def run_fret_batched(
             lp_b[bi], val_b[bi] = lp, valid
             bgs_b[bi] = (bgd, bga)
             eps_b[bi] = eps_f
+        tiles_np[B:] = 0
         return (tiles_buf if cuda else None), tiles_np, lp_b, val_b, bgs_b, eps_b
 
     def _launch(chunk, tiles_buf, tiles_np, lp_b, val_b, bgs_b, eps_b):
-        """Upload the packed chunk and enqueue its step (on the side stream
-        of a card, with the result's copy to page-locked memory)."""
-        if not cuda:
-            packed = _step(torch.from_numpy(tiles_np), lp_b, val_b, bgs_b, eps_b)
-            return chunk, packed.numpy(), None, ()
-        with torch.cuda.stream(side):
-            tiles_d = tiles_buf.to(dev, non_blocking=True).view(torch.uint16)
-            packed = _step(tiles_d, lp_b, val_b, bgs_b, eps_b)
-            out = staging.get(tuple(packed.shape), torch.float32)
-            out.copy_(packed, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(side)
-        return chunk, out, done, (tiles_buf, out)
+        """Enqueue every shard's step: its block of the packed chunk goes
+        up (on its device's side stream on a card, from page-locked
+        staging), the kernel launches, and the result's copy to page-locked
+        memory starts."""
+        tiles = tiles_buf if tiles_buf is not None else torch.from_numpy(tiles_np)
+
+        def block(d, lo, hi):
+            return runner.batched_fret_tile_stats_step(
+                runner.to_shard(tiles[lo:hi], d).view(torch.uint16),
+                *(runner.to_shard(a[lo:hi], d) for a in (lp_b, val_b, bgs_b, eps_b)),
+                clip_neg=cfg.clip_neg, flip=flip)
+
+        parts = runner.dispatch_shards(shards, block, len(lp_b), staging=staging,
+                                       streams=streams)
+        return chunk, parts, (tiles_buf,) if cuda else ()
 
     def finalize(rec):
         """Wait for a dispatched chunk, emit its rows, recycle its host
         buffers."""
         nonlocal n_done
-        chunk, packed, done, staged = rec
+        chunk, parts, staged = rec
         try:  # no side effects yet, so a failure is safe to retry serially
-            if done is not None:
-                with tm("fetch"):
-                    done.synchronize()
-                    packed = packed.numpy()
+            with tm("fetch"):
+                packed = runner.fetch_shards(parts).numpy()
         except Exception as e:  # noqa: BLE001
             raise runner.EmitFetchError(str(e)) from e
         with tm("emit"):
@@ -748,6 +766,9 @@ def run_fret_batched(
                 frame_pool.put(pre[1])
         for buf in staged:
             staging.put(buf)
+        for host, done in parts:
+            if done is not None:
+                staging.put(host)
         _maybe_grow_chunk()
         log(t("batch_progress").format(done=n_done))
 

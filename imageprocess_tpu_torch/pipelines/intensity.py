@@ -33,8 +33,11 @@ The batched runner (``run_intensity_batched``), per chunk of keys:
    ``parallel.runner.batched_tile_stats_step`` rasterizes the polygons and
    launches the tile-statistics kernel on that stream; one non-blocking
    copy brings the packed (B, 10, C, N) result back into page-locked
-   memory, and a CUDA event marks the chunk done;
-3. ``finalize`` waits on that event, turns the result into rows and only
+   memory, and a CUDA event marks the chunk done.  With a ``mesh=`` the
+   chunk's batch axis is split over its devices: every shard's block goes
+   up and launches on its own device (``parallel.runner.dispatch_shards``)
+   before any result is fetched;
+3. ``finalize`` waits on the events, turns the result into rows and only
    then recycles the chunk's host buffers (the copies read them late);
    ``report.excel`` writes the tables.
 
@@ -586,6 +589,7 @@ def run_intensity_batched(
     out_root: Optional[str] = None,
     log=print,
     batch_size: int = 8,
+    mesh=None,
     prefetch_workers: int = 8,
     cancel=None,
     device="cuda",
@@ -594,14 +598,20 @@ def run_intensity_batched(
     *folder*: chunks of keys quantify in ONE device step each, with two
     chunks in flight so host decode of chunk k+1 overlaps the device work
     of chunk k.  *device* is ``"cuda"`` (default; raises without a card)
-    or ``"cpu"`` (the plain PyTorch version, for tests).  Returns the rows
-    in key order.  A ``bg_scope`` other than ``"full"``, ``do_tif`` or
-    ``do_png`` runs :func:`run_intensity`."""
+    or ``"cpu"`` (the plain PyTorch version, for tests).  With a *mesh*
+    (``parallel.runner.Mesh``) each chunk's batch axis is split over its
+    devices, one kernel launch per shard, and a short trailing chunk pads
+    to the chunk size with invalid lanes; keys the batch cannot take run
+    on *device*.  Returns the rows in key order.  A ``bg_scope`` other
+    than ``"full"``, ``do_tif`` or ``do_png`` runs :func:`run_intensity`
+    (without the mesh, which the log line says)."""
     from ..ops.roistats import (
         choose_tile, gather_tiles, pad_local_polys, tile_offsets,
     )
     from ..parallel import runner
-    from ..parallel.runner import PrefetchLoader, make_autoscaler, stream_batches
+    from ..parallel.runner import (
+        PrefetchLoader, make_autoscaler, round_batch_to_mesh, stream_batches,
+    )
     from ..report.excel import save_intensity_excel
 
     dev = resolve_device(device)
@@ -618,8 +628,9 @@ def run_intensity_batched(
     roi_dir = os.path.join(folder, "roi")
     out_root = out_root or os.path.join(folder, "RES")
 
-    cuda = dev.type == "cuda"
-    side = torch.cuda.Stream(dev) if cuda else None
+    shards = mesh if mesh is not None else runner.Mesh((dev,))
+    cuda = any(d.type == "cuda" for d in shards.devices)
+    streams = runner.side_streams(shards)
     staging = PinnedPool() if cuda else None
     hist_stride = (max(1, cfg.bg_stride)
                    if cfg.bg_mode in ("percentile", "hist-mode") else 0)
@@ -730,6 +741,7 @@ def run_intensity_batched(
         _load, list(keymap.items()), workers=max(1, prefetch_workers),
         ahead=32,
     )
+    batch_size = round_batch_to_mesh(batch_size, mesh)
     _cur_bs, _maybe_grow_chunk = make_autoscaler(loader, batch_size)
     rows_all: List[dict] = []
     n_done = 0
@@ -757,14 +769,6 @@ def run_intensity_batched(
                     cfg.per_channel_p.get(ch, cfg.percentile))
                 row[f"ch{ch}_color"] = cfg.channel_colors.get(ch, "Grayscale")
             rows_all.append(row)
-
-    def _to_device(arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(arr).to(dev, non_blocking=True)
-
-    def _step(tiles_b, lp_b, val_b, bgs_b):
-        return runner.batched_tile_stats_step(
-            tiles_b, _to_device(lp_b), _to_device(val_b), _to_device(bgs_b),
-            clip_neg=cfg.clip_neg)
 
     def run_serial(entry):
         """A key the batch program can't take: :func:`process_key`,
@@ -807,11 +811,14 @@ def run_intensity_batched(
         vb = vb_hint if vb_hint is not None and max_v <= vb_hint \
             else _bucket(max_v, 32)
         B = len(chunk)
+        # on a mesh a short trailing chunk pads to the chunk size (the
+        # padded lanes are invalid and give no rows)
+        pad_b = _cur_bs() if mesh is not None else B
         C = chunk[0][2][1].shape[0]
-        lp_b = np.zeros((B, nb, vb, 2), np.float32)
-        val_b = np.zeros((B, nb), bool)
-        bgs_b = np.zeros((B, C), np.float32)
-        shape = (B, nb, C, tile, tile)
+        lp_b = np.zeros((pad_b, nb, vb, 2), np.float32)
+        val_b = np.zeros((pad_b, nb), bool)
+        bgs_b = np.zeros((pad_b, C), np.float32)
+        shape = (pad_b, nb, C, tile, tile)
         if cuda:
             # int16 storage read as uint16: the staging buffer is filled
             # through numpy and reinterpreted on the device
@@ -837,33 +844,34 @@ def run_intensity_batched(
             lp_b[bi], val_b[bi] = lp, valid
             bgs_b[bi] = bgs_pre if bgs_pre is not None else _host_bg(
                 imgs, chs, cfg)
+        tiles_np[B:] = 0
         return (tiles_buf if cuda else None), tiles_np, lp_b, val_b, bgs_b
 
     def _launch(chunk, tiles_buf, tiles_np, lp_b, val_b, bgs_b):
-        """Upload the packed chunk and enqueue its step (on the side stream
-        of a card, with the result's copy to page-locked memory)."""
-        if not cuda:
-            packed = _step(torch.from_numpy(tiles_np), lp_b, val_b, bgs_b)
-            return chunk, packed.numpy(), bgs_b, None, ()
-        with torch.cuda.stream(side):
-            tiles_d = tiles_buf.to(dev, non_blocking=True).view(torch.uint16)
-            packed = _step(tiles_d, lp_b, val_b, bgs_b)
-            out = staging.get(tuple(packed.shape), torch.float32)
-            out.copy_(packed, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(side)
-        return chunk, out, bgs_b, done, (tiles_buf, out)
+        """Enqueue every shard's step: its block of the packed chunk goes
+        up (on its device's side stream on a card, from page-locked
+        staging), the kernel launches, and the result's copy to page-locked
+        memory starts."""
+        tiles = tiles_buf if tiles_buf is not None else torch.from_numpy(tiles_np)
+
+        def block(d, lo, hi):
+            return runner.batched_tile_stats_step(
+                runner.to_shard(tiles[lo:hi], d).view(torch.uint16),
+                *(runner.to_shard(a[lo:hi], d) for a in (lp_b, val_b, bgs_b)),
+                clip_neg=cfg.clip_neg)
+
+        parts = runner.dispatch_shards(shards, block, len(lp_b), staging=staging,
+                                       streams=streams)
+        return chunk, parts, bgs_b, (tiles_buf,) if cuda else ()
 
     def finalize(rec):
         """Wait for a dispatched chunk, emit its rows, recycle its host
         buffers."""
         nonlocal n_done
-        chunk, packed, bgs, done, staged = rec
+        chunk, parts, bgs, staged = rec
         try:  # no side effects yet, so a failure is safe to retry serially
-            if done is not None:
-                with tm("fetch"):
-                    done.synchronize()
-                    packed = packed.numpy()
+            with tm("fetch"):
+                packed = runner.fetch_shards(parts).numpy()
         except Exception as e:  # noqa: BLE001
             raise runner.EmitFetchError(str(e)) from e
         with tm("emit"):
@@ -879,6 +887,9 @@ def run_intensity_batched(
                 frame_pool.put(pre[1])
         for buf in staged:
             staging.put(buf)
+        for host, done in parts:
+            if done is not None:
+                staging.put(host)
         _maybe_grow_chunk()
         log(t("batch_progress").format(done=n_done))
 

@@ -43,13 +43,14 @@ denominator, from which each crop's ratio is rebuilt) and
 float32 TIFFs and the full, crop and intensity-crop PNGs (the intensity
 channel's frame is read only for them), and with ``save_panel`` the 2-up
 intensity / ratio panel under ``PNG/panel``; the batched runner hands such
-a config to the serial one.  ``mesh=`` raises ``NotImplementedError``
-before a file is read, naming ``MULTI_DEVICE``.
+a config to the serial one.  With ``mesh=`` the batched runner splits
+each chunk's pair axis over the mesh's devices: every shard's frames go up
+and its step runs on its own device, one ``roistats_f32`` launch per shard
+(two with the annulus), before any result is fetched.
 """
 
 from __future__ import annotations
 
-import contextlib
 import os
 from dataclasses import dataclass
 from typing import Dict, List, Optional
@@ -59,7 +60,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core import i18n, naming, roiio, tiffio
-from ..device import MULTI_DEVICE, resolve_device
+from ..device import resolve_device
 from ..geom.polygon import pad_polygons
 from ..geom.rasterize import rasterize_polygons
 from ..morphology.binary import square_dilation
@@ -417,10 +418,10 @@ def make_nesprin2_batched_step(cfg: Nesprin2Config, *, has_aonly: bool,
     part runs pair by pair; the per-ROI part is one ``roistats_f32`` launch
     (two with the annulus) for the whole chunk.  Nothing image-sized comes
     back, but full frames go up: the rim EDT and the eps scope need the
-    whole union mask."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"sharding over a device mesh is not ported yet: {MULTI_DEVICE}")
+    whole union mask.  With a *mesh* the function splits the pair axis
+    over its devices (arrays (B, ...) whose B is a multiple of the mesh
+    size), runs each block on its device and returns the flat table on the
+    host, in pair order."""
     kw = _step_kwargs(cfg, has_aonly, tile)
     stage_kw = {k: kw.pop(k) for k in ("ann_on", "ann_in_px", "ann_out_px")}
     stage_kw.update(clip_neg=kw["clip_neg"], flip=kw["flip"], clip_on=kw["clip_on"],
@@ -441,7 +442,9 @@ def make_nesprin2_batched_step(cfg: Nesprin2Config, *, has_aonly: bool,
         res = roi_stage(pairs, masks.reshape(B, -1, tile, tile), off_b, **stage_kw)
         return _pack_flat(res, torch.stack([p["eps"] for p in pairs]))
 
-    return step
+    if mesh is None:
+        return step
+    return lambda *arrays: runner.run_sharded(mesh, step, *arrays)
 
 
 def unpack_n2_flat(flat: np.ndarray, nb: int):
@@ -646,13 +649,13 @@ def run_nesprin2_batched(
     :func:`run_nesprin2`.  A pair the batch cannot take (another frame
     shape or dtype, an ROI that needs the full frame or outgrows the run's
     tile) runs :func:`process_pair_nesprin2` in key order.  *device* is
-    ``"cuda"`` (default; raises without a card) or ``"cpu"``."""
+    ``"cuda"`` (default; raises without a card) or ``"cpu"``.  With a
+    *mesh* each chunk's pair axis is split over its devices, and a short
+    trailing chunk pads to the chunk size with invalid lanes; pairs the
+    batch cannot take run on *device*."""
     from ..report.excel import save_nesprin2_excel
 
     dev = resolve_device(device)
-    if mesh is not None:
-        raise NotImplementedError(
-            f"sharding over a device mesh is not ported yet: {MULTI_DEVICE}")
     if cfg.do_tif or cfg.do_png:
         # the image outputs are written pair by pair from full frames
         log(t("n2_images_serial"))
@@ -668,9 +671,10 @@ def run_nesprin2_batched(
     flip = cfg.ratio_mode != "FRET/Donor"
     d_p, a_p = _channel_ps(cfg)
     margin = _tile_margin(cfg)
-    cuda = dev.type == "cuda"
-    side = torch.cuda.Stream(dev) if cuda else None
-    staging = PinnedPool() if cuda else None
+    shards = mesh if mesh is not None else runner.Mesh((dev,))
+    streams = runner.side_streams(shards)
+    staging = (PinnedPool() if any(d.type == "cuda" for d in shards.devices)
+               else None)
     hint: Dict[str, int] = {}
 
     def _load(kv):
@@ -700,6 +704,7 @@ def run_nesprin2_batched(
         return kv, (D, A, I, Aonly, polys), pre
 
     loader = runner.PrefetchLoader(_load, pairs, workers=max(1, prefetch_workers))
+    batch_size = runner.round_batch_to_mesh(batch_size, mesh)
     step_cache: Dict[tuple, object] = {}
     rows_all: List[dict] = []
 
@@ -733,41 +738,49 @@ def run_nesprin2_batched(
         return step_cache[tile]
 
     def dispatch(chunk):
-        """Send the chunk's frames and pre-padded arrays and launch its
-        device step WITHOUT synchronising."""
+        """Send the chunk's frames and pre-padded arrays and launch each
+        shard's device step WITHOUT synchronising."""
         held: List[torch.Tensor] = []
+        # on a mesh a short trailing chunk pads to the chunk size with
+        # zero frames and invalid lanes, which give no rows
+        pad_b = batch_size if mesh is not None else len(chunk)
+        lanes = [loaded for _, loaded, _ in chunk] + [None] * (pad_b - len(chunk))
+        D0 = chunk[0][1][0]
 
-        def up(arr):
-            return to_device(arr, dev, staging, held)
+        def frame(loaded, k):
+            return loaded[k] if loaded is not None else np.zeros(D0.shape, D0.dtype)
 
         def stacked(k):
-            return up(np.stack([pre[k] for _, _, pre in chunk]))
+            out = np.zeros((pad_b,) + chunk[0][2][k].shape, chunk[0][2][k].dtype)
+            out[:len(chunk)] = [pre[k] for _, _, pre in chunk]
+            return out
 
-        with torch.cuda.stream(side) if cuda else contextlib.nullcontext():
+        pres = [stacked(k) for k in (1, 2, 3, 4)]
+        step = step_for(hint["tile"])
+
+        def block(d, lo, hi):
+            def up(arr):
+                return to_device(arr, d, staging, held)
+
             # frame by frame (the step takes them one at a time); a (1, 1)
             # placeholder when there is no acceptor-only channel: the step
             # never reads it
-            frames = [[up(loaded[k]) for _, loaded, _ in chunk]
+            frames = [[up(frame(loaded, k)) for loaded in lanes[lo:hi]]
                       for k in ((0, 1, 3) if sig[4] else (0, 1))]
             if not sig[4]:
-                frames.append(up(np.zeros((len(chunk), 1, 1), np.uint16)))
-            flat = step_for(hint["tile"])(*frames, *(stacked(k) for k in (1, 2, 3, 4)))
-            if not cuda:
-                return chunk, flat.numpy(), None, held
-            out = staging.get(tuple(flat.shape), torch.float32)
-            out.copy_(flat, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(side)
-        return chunk, out, done, held + [out]
+                frames.append(up(np.zeros((hi - lo, 1, 1), np.uint16)))
+            return step(*frames, *(up(a[lo:hi]) for a in pres))
+
+        parts = runner.dispatch_shards(shards, block, pad_b, staging=staging,
+                                       streams=streams)
+        return chunk, parts, held
 
     def finalize(rec):
         """Wait for a dispatched chunk, emit its rows, recycle its staging
         buffers."""
-        chunk, flat, done, staged = rec
+        chunk, parts, staged = rec
         try:  # no side effects yet, so a failure is safe to retry serially
-            if done is not None:
-                done.synchronize()
-                flat = flat.numpy()
+            flat = runner.fetch_shards(parts).numpy()
         except Exception as e:  # noqa: BLE001
             raise runner.EmitFetchError(str(e)) from e
         cols, eps_arr = unpack_n2_flat(flat, hint["nb"])
@@ -780,6 +793,9 @@ def run_nesprin2_batched(
                     eps_f, cfg, flip, d_p, a_p))
         for buf in staged:
             staging.put(buf)
+        for host, done in parts:
+            if done is not None:
+                staging.put(host)
 
     def _err_key(it):
         # the raw (key, dpath, apath) loader item on a load failure, or an

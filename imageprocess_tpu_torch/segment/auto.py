@@ -132,16 +132,17 @@ def _unet_segment(img: np.ndarray, cfg: AutoSegConfig,
     (segment.cellseg) -> polygons."""
     from .cellseg import segment_frame_unet
 
-    if cfg.devices > 1:
-        raise NotImplementedError(
-            "AutoSegConfig.devices > 1 (the tile batch sharded over several "
-            "devices) is not ported yet: ROADMAP Queue 1 item 12")
     model, tile = _unet_model(cfg, device)
+    mesh = None
+    if cfg.devices > 1:
+        from ..parallel.runner import make_mesh
+
+        mesh = make_mesh(cfg.devices, device=device)
     return segment_frame_unet(
         img, model, tile=tile,
         prob_threshold=cfg.prob_threshold, min_size_px=cfg.min_size_px,
         max_labels=cfg.max_labels, min_poly_area=cfg.min_poly_area,
-        flow_follow=cfg.flow_follow, device=device)
+        flow_follow=cfg.flow_follow, mesh=mesh, device=device)
 
 
 def auto_segment_frame(img: np.ndarray, cfg: AutoSegConfig,

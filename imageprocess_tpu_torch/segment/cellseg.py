@@ -14,11 +14,17 @@ The JAX module fuses the device work into one jitted program; here it is
 two functions, :func:`forward_tiles` and :func:`postprocess`, so that both
 packages' post-processes can be fed the same network output.  The JAX
 module forwards a batch rounded up to a multiple of 16 tiles to spare XLA
-recompiles; this one forwards exactly the kept tiles.
+recompiles; this one forwards exactly the kept tiles.  With ``mesh=`` the
+tile batch is padded to a multiple of the mesh size and split over its
+devices, one U-Net replica per device (:func:`forward_tiles_sharded`); the
+frame's own work stays on *device*.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
+import weakref
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -117,6 +123,46 @@ def forward_tiles(model, tiles: torch.Tensor) -> torch.Tensor:
         model.to(tiles.device)
     with torch.no_grad(), no_tf32():
         return model(tiles).to(torch.float32)
+
+
+#: per model, its replicas on other devices: {model: {device: replica}}
+_REPLICAS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _replica(model, dev: torch.device):
+    """*model* where its weights lie on *dev*, else its copy on *dev*,
+    made once per device and cached for as long as the model lives."""
+    if not isinstance(model, torch.nn.Module):
+        return model
+    p = next(model.parameters(), None)
+    if p is None or p.device == dev:
+        return model
+    per_dev = _REPLICAS.setdefault(model, {})
+    if dev not in per_dev:
+        per_dev[dev] = copy.deepcopy(model).to(dev)
+    return per_dev[dev]
+
+
+def forward_tiles_sharded(model, tiles: torch.Tensor, mesh) -> torch.Tensor:
+    """:func:`forward_tiles` with the tile batch split over *mesh*: the
+    batch is zero-padded to a multiple of the mesh size, each device
+    forwards its contiguous block with its own replica (every block is
+    enqueued before any output is gathered), and the outputs come back to
+    the tiles' device in tile order.  Per-tile math does not depend on
+    the batch, so the output is the single-device one."""
+    from ..parallel.runner import shard_bounds
+
+    t = tiles.shape[0]
+    pad = (-t) % len(mesh.devices)
+    if pad:
+        tiles = torch.cat([tiles, tiles.new_zeros((pad,) + tiles.shape[1:])])
+    outs = []
+    for dev, (lo, hi) in zip(mesh.devices, shard_bounds(mesh, tiles.shape[0])):
+        with (torch.cuda.device(dev) if dev.type == "cuda"
+              else contextlib.nullcontext()):
+            outs.append(forward_tiles(_replica(model, dev),
+                                      tiles[lo:hi].to(dev, non_blocking=True)))
+    return torch.cat([o.to(tiles.device) for o in outs])[:t]
 
 
 def _feather(tile: int, device) -> torch.Tensor:
@@ -238,6 +284,7 @@ def label_frame_unet(
     flow_follow: bool = True,
     cull_margin: float = 0.05,
     *,
+    mesh=None,
     device="cuda",
     timer=NO_TIMER,
 ) -> Optional[np.ndarray]:
@@ -245,14 +292,16 @@ def label_frame_unet(
     prepass finds no tile above background (the JAX function then returns
     no polygons).  Raises ValueError when more than *max_labels*
     components were found.  *model* maps (n, 1, t, t) float32 tiles to
-    (n, C, t, t) outputs (a ``UNet`` from ``models.checkpoint.load_unet``)."""
+    (n, C, t, t) outputs (a ``UNet`` from ``models.checkpoint.load_unet``).
+    With a *mesh* the forward's tile batch is split over its devices."""
     cut = frame_tiles(img, tile, overlap, cull_margin, device=device,
                       timer=timer)
     if cut is None:
         return None
     tiles, keep, ys, xs = cut
     with timer.phase("forward"):
-        out = forward_tiles(model, tiles)
+        out = (forward_tiles(model, tiles) if mesh is None
+               else forward_tiles_sharded(model, tiles, mesh))
         timer.count("tiles", tiles.shape[0])
     lab, over = postprocess(
         out, keep, ys=ys, xs=xs, tile=tile, shape=img.shape,
@@ -288,18 +337,17 @@ def segment_frame_unet(
     inference; the JAX function's arguments with *model* in place of
     (apply_fn, params).
 
+    ``mesh``: optional ``parallel.runner.Mesh`` -- the tile batch is split
+    across it (results identical to single-device).
+
     ``cull_margin``: tiles whose stretched max is <= this skip the forward
     (their response is the network's all-zero-tile response); 0 disables
     culling.  Only active on u16-valued frames."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (the tile batch sharded over several devices) is not "
-            "ported yet: ROADMAP Queue 1 item 12")
     labels = label_frame_unet(
         img, model, tile=tile, overlap=overlap, prob_threshold=prob_threshold,
         min_size_px=min_size_px, max_labels=max_labels,
-        flow_follow=flow_follow, cull_margin=cull_margin, device=device,
-        timer=timer)
+        flow_follow=flow_follow, cull_margin=cull_margin, mesh=mesh,
+        device=device, timer=timer)
     if labels is None:
         return []
     with timer.phase("polygons"):

@@ -14,11 +14,15 @@ Checks:
   backend    the CUDA probe, under --backend-timeout: a card is present,
              one launch runs, both hand kernels build with nvcc and one
              small launch of each equals its plain PyTorch version
-  mesh       skipped: the port runs on one device
+  mesh       in a subprocess: one sharded reduce and one
+             ``sharded_quantile_u16`` on a virtual 4-shard mesh of the
+             probed device kind, each held to the unsharded result, and
+             on a real mesh of two cards when the machine has two
 
 ``IP_DOCTOR_BACKEND=cpu`` asks the backend probe for one dispatch on the
-CPU and nothing more; without it, a machine without a card fails the
-probe.  Exit status: 0 when every check that ran passed, 1 otherwise.
+CPU and nothing more, and the mesh probe for a virtual CPU mesh; without
+it, a machine without a card fails both probes.  Exit status: 0 when
+every check that ran passed, 1 otherwise.
 """
 
 from __future__ import annotations
@@ -222,10 +226,45 @@ def backend_probe(forced: str = "") -> None:
           f"version (moments within {rel:.1e} rel)")
 
 
-def _backend_code(forced: str) -> str:
+def mesh_probe(forced: str = "") -> None:
+    """The ``mesh`` check, run inside its subprocess; prints one line, or
+    raises.  On a virtual 4-shard mesh of the probed kind (*forced*, else
+    ``cuda``) and, with two cards or more, on a real mesh of two: a
+    sharded sum and an exact sharded percentile, each equal to the
+    unsharded result."""
+    import numpy as np
+    import torch
+
+    from ..parallel.runner import Mesh, make_mesh
+    from ..parallel.spatial import _psum, shard_frame, sharded_quantile_u16
+
+    kind = forced if forced and forced != "cuda" else "cuda"
+    if kind == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"no CUDA device found: torch.cuda.is_available() is False "
+            f"(torch {torch.__version__}, CUDA build {torch.version.cuda})")
+    dev = torch.device("cuda", 0) if kind == "cuda" else torch.device(kind)
+    meshes = {f"virtual 4-shard {kind} mesh": Mesh((dev,) * 4, "b")}
+    if kind == "cuda" and torch.cuda.device_count() >= 2:
+        meshes["2-card mesh"] = make_mesh(2, "b")
+    frame = np.random.default_rng(0).integers(0, 4096, (64, 48)).astype(np.uint16)
+    want = float(np.percentile(frame.astype(np.float64).ravel(), 1.0))
+    for name, mesh in meshes.items():
+        s = float(_psum([b.sum() for b in shard_frame(mesh, torch.arange(8.0))]))
+        if s != 28.0:
+            raise RuntimeError(f"{name}: sharded sum {s} != 28.0")
+        q = float(sharded_quantile_u16(mesh, 1000)(shard_frame(mesh, frame)))
+        if abs(q - want) > 1e-6 * max(1.0, abs(want)):
+            raise RuntimeError(f"{name}: sharded percentile {q} != {want}")
+    more = "" if len(meshes) > 1 else (
+        f" ({torch.cuda.device_count()} card: no real mesh)" if kind == "cuda" else "")
+    print(f"{' and '.join(meshes)} + sharded reduce and percentile ok{more}")
+
+
+def _probe_code(probe: str, forced: str) -> str:
     return (f"import sys\nsys.path.insert(0, {_ROOT!r})\n"
-            "from imageprocess_tpu_torch.utils.doctor import backend_probe\n"
-            f"backend_probe({forced!r})\n")
+            f"from imageprocess_tpu_torch.utils.doctor import {probe}\n"
+            f"{probe}({forced!r})\n")
 
 
 def run_doctor(backend_timeout: float = 600.0, skip_backend: bool = False,
@@ -258,13 +297,14 @@ def run_doctor(backend_timeout: float = 600.0, skip_backend: bool = False,
         record("backend", "skip", "(--skip-backend)")
     else:
         ok, detail = _run_sub(
-            _backend_code(os.environ.get("IP_DOCTOR_BACKEND", "")),
+            _probe_code("backend_probe", os.environ.get("IP_DOCTOR_BACKEND", "")),
             timeout=backend_timeout)
         record("backend", "ok" if ok else "fail", detail)
 
-    from ..device import MULTI_DEVICE
-
-    record("mesh", "skip", f"the port runs on one device; {MULTI_DEVICE}")
+    ok, detail = _run_sub(
+        _probe_code("mesh_probe", os.environ.get("IP_DOCTOR_BACKEND", "")),
+        timeout=max(120.0, backend_timeout))
+    record("mesh", "ok" if ok else "fail", detail)
 
     failures = sum(1 for _, status, _ in results if status == "fail")
     if as_json:

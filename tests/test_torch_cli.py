@@ -352,15 +352,30 @@ def test_devices_above_the_count_exit_1_with_the_same_line(argv, tmp_path, monke
     assert out["j"][2] == out["t"][2]
 
 
-def test_devices_within_the_count_raise_before_any_read(monkeypatch):
-    """More than one device that the machine has: not ported, so it raises
-    naming item 12, never running on one device silently."""
+def test_devices_within_the_count_build_a_mesh(monkeypatch):
+    """More than one device that the machine has: the mesh of its first N
+    cards, never a run on one device; one device: no mesh, as JAX."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     args = argparse.Namespace(devices=4, device=torch.device("cuda"))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tcli._devices_ok(args, print)
+    ok, mesh = tcli._mesh_for(args, print)
+    assert ok and mesh.devices == tuple(torch.device("cuda", i) for i in range(4))
     args.devices = 1
-    assert tcli._devices_ok(args, print)
+    assert tcli._mesh_for(args, print) == (True, None)
+
+
+@pytest.mark.parametrize("argv", [
+    ["intensity", "--batched"], ["fret"], ["nesprin2", "--batched"],
+    ["fa", "--roi-dir", "R", "--out", "O", "--batched"]])
+def test_devices_1_calls_the_runner_as_without_it(argv, tmp_path, monkeypatch):
+    """``--devices 1`` is the run without a mesh: the same runner call,
+    ``mesh=None``."""
+    calls = _record(monkeypatch, "imageprocess_tpu_torch")
+    base = argv[:1] + [str(tmp_path)] + argv[1:] + ["--device", "cpu", "--lang", "en"]
+    assert tcli.main(base) == 0 and tcli.main(base + ["--devices", "1"]) == 0
+    assert len(calls) == 2 and calls[0][2]["mesh"] is None
+    assert _normalized(calls[:1]) == _normalized(calls[1:]) and \
+        calls[0][2] == calls[1][2] | {"log": calls[0][2]["log"]}
 
 
 @pytest.mark.parametrize("argv", [

@@ -3,7 +3,9 @@
 card runs in a subprocess under a hard timeout, so the doctor never
 hangs.  ``IP_DOCTOR_BACKEND=cpu`` asks the probe for one CPU dispatch;
 without it, a machine without a card fails the probe, naming the missing
-card.  ``mesh`` is skipped: the port runs on one device."""
+card.  ``mesh`` holds a sharded reduce and a sharded percentile on a
+virtual 4-shard mesh of the probed kind to the unsharded results: ``ok``
+or ``fail``, never skipped."""
 
 import json
 import time
@@ -13,7 +15,7 @@ import torch
 
 from imageprocess_tpu_torch import cli as tcli
 from imageprocess_tpu_torch.core import i18n as ti18n
-from imageprocess_tpu_torch.utils.doctor import _run_sub, backend_probe, run_doctor
+from imageprocess_tpu_torch.utils.doctor import _run_sub, backend_probe, mesh_probe, run_doctor
 
 CHECKS = ("deps", "native", "numerics", "write", "backend", "mesh")
 
@@ -29,14 +31,14 @@ def _restore_lang():
     ti18n.set_lang("en")
 
 
-def test_doctor_all_green_but_mesh(cpu_backend_env):
+def test_doctor_all_green_with_the_mesh(cpu_backend_env):
     lines = []
     rc = run_doctor(backend_timeout=240.0, log=lines.append)
     assert rc == 0, lines
     joined = "\n".join(lines)
-    for name in CHECKS[:-1]:
+    for name in CHECKS:
         assert f"[ok] {name}" in joined, joined
-    assert "[skip] mesh" in joined and "item 12" in joined
+    assert "virtual 4-shard cpu mesh + sharded reduce and percentile ok" in joined
     assert "cpu x1" in joined
     assert lines[-1] == "all checks passed"
 
@@ -69,14 +71,13 @@ def test_doctor_cli_json_output(cpu_backend_env, capsys):
     d = json.loads(line)
     assert rc == 0 and d["ok"] and d["failures"] == 0
     assert set(d["checks"]) == set(CHECKS)
-    assert {k: v["status"] for k, v in d["checks"].items()} == {
-        **{k: "ok" for k in CHECKS[:-1]}, "mesh": "skip"}
+    assert {k: v["status"] for k, v in d["checks"].items()} == {k: "ok" for k in CHECKS}
 
 
 def test_doctor_without_a_card_fails_the_backend(monkeypatch, capsys):
     """No fallback to the CPU: without IP_DOCTOR_BACKEND and without a
-    card, ``backend`` is [FAIL] and says that no CUDA device was found;
-    the exit status is 1."""
+    card, ``backend`` and ``mesh`` are [FAIL] and say that no CUDA device
+    was found; the exit status is 1."""
     if torch.cuda.is_available():
         pytest.skip("needs a machine without a card")
     monkeypatch.delenv("IP_DOCTOR_BACKEND", raising=False)
@@ -85,7 +86,9 @@ def test_doctor_without_a_card_fails_the_backend(monkeypatch, capsys):
     assert rc == 1
     backend = next(ln for ln in lines if "backend" in ln)
     assert backend.startswith("[FAIL] backend") and "no CUDA device found" in backend
-    assert "1 check(s) FAILED" in lines
+    mesh = next(ln for ln in lines if " mesh " in ln)
+    assert mesh.startswith("[FAIL] mesh") and "no CUDA device found" in mesh
+    assert "2 check(s) FAILED" in lines
 
 
 @pytest.mark.cuda
@@ -98,3 +101,13 @@ def test_backend_probe_on_the_card(capsys):
     line = capsys.readouterr().out.strip()
     assert torch.cuda.get_device_name(0) in line
     assert "tilestats_u16" in line and "roistats_f32" in line
+
+
+@pytest.mark.cuda
+def test_mesh_probe_on_the_card(capsys):
+    """On a card: the virtual 4-shard mesh of cuda:0 (and a mesh of two
+    cards where there are two) passes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    mesh_probe()
+    assert "virtual 4-shard cuda mesh" in capsys.readouterr().out

@@ -493,19 +493,35 @@ def test_cancel_stops_both_runners(experiment, tmp_path):
 
 
 @pytest.mark.parametrize("what", ["mesh", "save_fa_figs", "export_fa_crops"])
-def test_unported_parts_raise_naming_their_roadmap_item(experiment, tmp_path, what):
-    """``mesh=`` raises naming item 12; the figures run: one overview
-    figure per stage and one crop PNG per cell, under the JAX names
-    (tests/test_torch_figures.py holds their pixels to JAX's).  (The name
-    is kept from when the figures raised too.)"""
+def test_mesh_run_and_figures_match_the_plain_run_and_jax_names(experiment, runs,
+                                                                 tmp_path, what):
+    """``mesh=``: the batched run of stages S01 and S02 with the stage
+    axis split over 4 CPU shards (the chunk of 2 padded to 4 with zero
+    frames) equals the batched run without one, rows and CSVs; the figures
+    run: one overview figure per stage and one crop PNG per cell, under the
+    JAX names (tests/test_torch_figures.py holds their pixels to JAX's)."""
+    img_dir, roi_dir = experiment
     if what == "mesh":
-        args = (str(tmp_path), str(tmp_path), str(tmp_path / "o"), tfa.FaConfig())
-        with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-            tfa.run_fa_batched(*args, mesh=object(), device="cpu")
+        import shutil
+
+        from imageprocess_tpu_torch.parallel.runner import Mesh
+
+        out, _, _, plain = runs
+        tags = ("S01", "S02")
+        for d, src, ext in (("imgs", img_dir, "_0.tif"), ("roi", roi_dir, ".json")):
+            (tmp_path / d).mkdir()
+            for tag in tags:
+                shutil.copy(src / f"{tag}{ext}", tmp_path / d)
+        res = tfa.run_fa_batched(str(tmp_path / "imgs"), str(tmp_path / "roi"),
+                                 str(tmp_path / "mesh"), tfa.FaConfig(**CFG), batch_size=2,
+                                 mesh=Mesh(("cpu",) * 4), device="cpu", **QUIET)
+        assert res == {tag: plain[tag] for tag in tags}
+        for tag in tags:
+            name = os.path.join("individual_results", f"{tag}_results.csv")
+            assert (tmp_path / "mesh" / name).read_bytes() == (out / "t2" / name).read_bytes()
         return
     from PIL import Image
 
-    img_dir, roi_dir = experiment
     logs = []
     written = getattr(tfa, what)(str(img_dir), str(roi_dir), str(tmp_path / "o"),
                                  tfa.FaConfig(**CFG), log=logs.append, device="cpu")

@@ -570,12 +570,12 @@ def test_image_outputs_raise_before_reading(n2_ds, tmp_path, runner, out):
     assert sum(_n2_colorbar(n) is not None for n in names) == 9
 
 
-def test_save_panel_raises_naming_item_14d(n2_ds, tmp_path):
+def test_save_panel_writes_the_2up_panel_beside_each_full_frame(n2_ds, tmp_path):
     """With ``do_png`` and ``save_panel`` both runners write the JAX
     runner's 2-up panel, ``PNG/panel/{tag}_panel_{suffix}.png``, beside
     each full ratio frame, the same bytes from either runner (the batched
     one hands the run to the serial one); without ``do_png`` no panel is
-    drawn, in JAX too.  (The name is kept from when the panel raised.)"""
+    drawn, in JAX too."""
     from PIL import Image
     from test_torch_tiffout import png_files
 
@@ -604,13 +604,22 @@ def test_save_panel_raises_naming_item_14d(n2_ds, tmp_path):
     assert len(rows) == 9 and png_files(tmp_path / "nopng") == []
 
 
-def test_mesh_raises_naming_its_roadmap_item(n2_ds):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        tn.run_nesprin2_batched(str(n2_ds), tn.Nesprin2Config(donor_ch=1, fret_ch=2),
-                                mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        tn.make_nesprin2_batched_step(tn.Nesprin2Config(), has_aonly=False, tile=64,
-                                      mesh=object())
+def test_batched_runner_on_a_cpu_mesh_equals_the_run_without(n2_ds, serial_rows):
+    """``mesh=``: the pair axis split over 4 CPU shards (chunks of 3 rounded
+    up to 4, the short chunk padded; S03 without ROIs skipped, S04 of
+    another shape on the per-pair path), with the annulus and QC: every row
+    equal to the run without a mesh (whose rows equal the serial rows,
+    ``test_batched_rows_equal_serial_rows``)."""
+    from imageprocess_tpu_torch.parallel.runner import Mesh
+
+    cfg = tn.Nesprin2Config(donor_ch=1, fret_ch=2, do_xls=False, **CONFIGS["qc-annulus"])
+    rows = tn.run_nesprin2_batched(str(n2_ds), cfg, log=lambda *_: None, batch_size=3,
+                                   mesh=Mesh(("cpu",) * 4), device="cpu")
+    want = serial_rows("qc-annulus")
+    assert len(rows) == len(want) == 9
+    for r, w in zip(rows, want):
+        assert list(r) == list(w)
+        assert all(r[k] == v or (r[k] != r[k] and v != v) for k, v in w.items())
 
 
 def test_runners_default_to_the_card(n2_ds, monkeypatch):

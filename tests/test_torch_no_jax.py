@@ -56,6 +56,8 @@ def test_main_path_import_pulls_in_no_jax_pil_pandas():
         "import json, sys\n"
         "import imageprocess_tpu_torch.pipelines.intensity\n"
         "import imageprocess_tpu_torch.parallel.runner\n"
+        "import imageprocess_tpu_torch.parallel.spatial\n"
+        "import imageprocess_tpu_torch.parallel.dryrun\n"
         "import imageprocess_tpu_torch.ops.tile_stats_kernel\n"
         "import imageprocess_tpu_torch.pipelines.fret\n"
         "import imageprocess_tpu_torch.ops.roi_stats_kernel\n"
@@ -258,6 +260,8 @@ def test_main_paths_load_no_reference_file_and_build_outside_it(tmp_path):
         "import imageprocess_tpu_torch.pipelines.intensity\n"
         "import imageprocess_tpu_torch.pipelines.fret\n"
         "import imageprocess_tpu_torch.parallel.runner\n"
+        "import imageprocess_tpu_torch.parallel.spatial\n"
+        "import imageprocess_tpu_torch.parallel.dryrun\n"
         "import imageprocess_tpu_torch.segment.auto\n"
         "import imageprocess_tpu_torch.segment.cellseg\n"
         "import imageprocess_tpu_torch.models.synthcells\n"

@@ -449,10 +449,10 @@ def test_save_png_image_equals_jax(tmp_path, rgb, scalebar):
     assert (tmp_path / "t" / "x.png").read_bytes() == (tmp_path / "j" / "x.png").read_bytes()
 
 
-def test_save_panel_raises_naming_item_14d(tmp_path):
+def test_save_panel_draws_both_image_boxes_on_the_jax_canvas(tmp_path):
     """The 2-up panel of a 4 x 4 frame: the JAX figure's 1800 x 900 canvas
     on white with both image boxes drawn (tests/test_torch_figures.py holds
-    it to matplotlib's).  (The name is kept from when the panel raised.)"""
+    it to matplotlib's)."""
     rim = np.ones((4, 4), bool)
     rim[0] = False
     tr.save_panel_intensity_ratio(np.arange(16.0).reshape(4, 4), np.full((4, 4), 0.35),

@@ -226,11 +226,11 @@ def test_label_overflow_raises():
                                 max_labels=2, flow_follow=False, device="cpu")
 
 
-def test_entry_points_refuse_what_is_not_ported(monkeypatch):
+def test_entry_points_refuse_devices_they_do_not_have(monkeypatch):
+    """More devices than the CPU has (one) raise, naming both counts; the
+    default device is the card, which a machine without one refuses."""
     img = np.zeros((64, 64), np.uint16)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tseg.segment_frame_unet(img, _blobs_model, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="2 cpu devices requested but 1 present"):
         tauto.auto_segment_frame(img, tauto.AutoSegConfig(backend="unet",
                                                           devices=2), "cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
