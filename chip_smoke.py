@@ -183,7 +183,21 @@ of which exits non-zero on failure:
    x 18 cells of the FA experiment, every overview figure and crop equal
    to the direct CPU calls' pixel for pixel; seconds per panel, per
    overview figure and per crop;
-18. kernel and plain times per chunk: each kernel's time per call through
+18. U-Net training (``models.train``) at the generalist training script's
+   full width (features (16, 32, 64, 128), tile 128, batch 8): 200
+   ``train_step`` calls on crops of a pool of 8 synthcells frames (the
+   script's 160, cut), every loss finite and the final EMA below the first
+   loss; one bf16 and one float32-model step on the card against the same
+   step on the CPU (loss 1e-3 / 1e-5 relative, gradients 5e-2 / 1e-4
+   relative norm); ``save_checkpoint`` -> ``load_unet``, logits bit-equal;
+   ``make_sharded_train_step`` on 4 virtual shards of cuda:0 against
+   ``train_step`` (float32 model: loss 1e-6 relative, gradients 1e-4
+   relative norm, the update equal to one AdamW step from the averaged
+   gradients, parameters within 0.1 lr where the two gradients agree to
+   10 %); ms per step and Mpix/s at tile 128 and at tile 256 (the golden
+   script's crop) with one step under ``torch.profiler``; neither hand
+   kernel launches;
+19. kernel and plain times per chunk: each kernel's time per call through
    its Python wrapper against the plain version's (CUDA events around 50
    calls, in turns plain / kernel / kernel / plain), the kernel's device
    time by CUDA graph replay (the wrapper's host time left out), the grid
@@ -199,7 +213,8 @@ masked moments with six exact order statistics -- and
 ``launches_per_run``, ``launches_mesh`` (per runner and mesh); ``roistats_f32`` also ``launches_serial`` and its
 ``serial_shapes`` times, ``launches_nesprin2`` and its ``nesprin2_shapes``
 times, ``launches_tiff_outputs``, ``launches_image_outputs``,
-``launches_figures``; both ``launches_cli``), then ``{"ok": true, "device": {...}}``.  Without
+``launches_figures``; both ``launches_cli`` and ``launches_train``), then
+``{"ok": true, "device": {...}}``.  Without
 a card, or outside a checkout, it prints no result and exits non-zero.
 
 ``python3 chip_smoke.py --kernels-only`` stops after phase 3.
@@ -1307,7 +1322,9 @@ def profile_run(fn, top: int = 8) -> dict:
     """One call of *fn* under ``torch.profiler`` (CPU and CUDA activities):
     its wall seconds, the device time (the union of the kernel and copy
     intervals, so overlaps count once), the device's idle share of the
-    wall, and the *top* kernel and copy names by summed device time."""
+    wall, and the *top* kernel and copy names by summed device time.
+    Annotation ranges on the device's timeline (``Optimizer.step#...``)
+    are not kernels and are left out."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1320,7 +1337,7 @@ def profile_run(fn, top: int = 8) -> dict:
         wall = time.perf_counter() - t0
     spans, by_name = [], {}
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
             continue
         a, b = e.time_range.start, e.time_range.end
         spans.append((a, b))
@@ -3740,6 +3757,228 @@ def run_mesh_paths(data: str, fa_dir: str) -> dict:
     return res
 
 
+# ------------------------------------------------------------------ training
+
+TRAIN_FEATURES = (16, 32, 64, 128)   # scripts/train_unet_general_torch.py's widths
+TRAIN_TILE, TRAIN_BATCH = 128, 8     # its crops and batch
+TRAIN_STEPS = 200
+TRAIN_POOL = 8                       # frames in the pool: the script's 160, cut
+TRAIN_FRAME_HW = 384
+GOLDEN_TRAIN_TILE = 256              # train_unet_golden.py's crop (the roi-auto default)
+TRAIN_WINDOWS, TRAIN_WINDOW_STEPS = 3, 20
+TRAIN_SHARDS = 4
+
+
+def train_pool(rng, device: str) -> list:
+    """TRAIN_POOL synthcells frames as the training script builds its pool:
+    the domains in turn, one of its three cell scales each, training
+    arrays by ``frame_arrays`` on *device*."""
+    from imageprocess_tpu_torch.models.synthcells import DOMAINS, frame_arrays, synth_frame
+
+    scales = [(6.0, 16.0), (10.0, 28.0), (18.0, 48.0)]
+    pool = []
+    for i in range(TRAIN_POOL):
+        img, labels = synth_frame(rng, TRAIN_FRAME_HW, TRAIN_FRAME_HW,
+                                  DOMAINS[i % len(DOMAINS)],
+                                  r_range=scales[rng.integers(len(scales))])
+        pool.append(frame_arrays(img, labels, device=device))
+    return pool
+
+
+def _grad_rel(a, b) -> float:
+    """Relative norm of the difference of two models' ``.grad``, all
+    parameters together."""
+    num = sum(float((p.grad.cpu() - q.grad.cpu()).norm()) ** 2
+              for p, q in zip(a.parameters(), b.parameters()))
+    den = sum(float(q.grad.cpu().norm()) ** 2 for q in b.parameters())
+    return math.sqrt(num / den)
+
+
+def _params_moved(a, b, skip=()) -> float:
+    """Largest absolute difference of two models' parameters."""
+    want = b.state_dict()
+    return max(float((v.cpu() - want[k].cpu()).abs().max())
+               for k, v in a.state_dict().items() if k not in skip)
+
+
+def _params_where_gradients_agree(a, b, skip, lr: float) -> dict:
+    """The largest parameter difference of two models after one step, in
+    lr, over the elements whose two gradients agree to 10 % (|g_a - g_b|
+    <= 0.1 min(|g_a|, |g_b|)); the count of the other elements and their
+    largest difference.  Adam's first update is lr g / (|g| + 1e-8), so
+    where the two paths' float32 roundings of a gradient near zero differ
+    in sign or size the parameters differ by up to 2 lr, as for the
+    zero-gradient biases; where the gradients agree to 10 % the updates
+    differ by at most lr / 40."""
+    import torch
+
+    agree, other, n_other = 0.0, 0.0, 0
+    for (name, p), q in zip(a.named_parameters(), b.parameters()):
+        if name in skip:
+            continue
+        keep = (p.grad - q.grad).abs() <= 0.1 * torch.minimum(p.grad.abs(), q.grad.abs())
+        diff = (p.detach() - q.detach()).abs()
+        agree = max(agree, float(torch.where(keep, diff, 0).max()))
+        other = max(other, float(torch.where(keep, 0, diff).max()))
+        n_other += int((~keep).sum())
+    return {"params_over_lr": agree / lr, "apart": n_other, "apart_over_lr": other / lr}
+
+
+def time_train_steps(tile: int, batch: int, rng, pool, device: str = "cuda") -> dict:
+    """ms per ``train_step`` at *tile* x *batch* (full width, bf16, the
+    batches sampled beforehand): warm-up, then TRAIN_WINDOWS windows of
+    TRAIN_WINDOW_STEPS steps, each closed by a synchronise; the median
+    window.  Also one step under ``torch.profiler``."""
+    import torch
+
+    from imageprocess_tpu_torch.models.golden import sample_crops
+    from imageprocess_tpu_torch.models.train import (TrainConfig, create_train_state,
+                                                     train_step)
+
+    cfg = TrainConfig(features=TRAIN_FEATURES, tile=tile, batch_size=batch)
+    state = create_train_state(cfg, torch.Generator().manual_seed(5), device=device)
+    t0 = time.perf_counter()
+    crops = [sample_crops(rng, *pool[rng.integers(len(pool))], tile, batch)
+             for _ in range(TRAIN_WINDOW_STEPS)]
+    sample_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_WINDOW_STEPS
+    for b in crops[:5]:
+        train_step(state, *b)
+    torch.cuda.synchronize()
+    windows = []
+    for _ in range(TRAIN_WINDOWS):
+        t0 = time.perf_counter()
+        for b in crops:
+            train_step(state, *b)
+        torch.cuda.synchronize()
+        windows.append((time.perf_counter() - t0) * 1e3 / len(crops))
+    ms = sorted(windows)[len(windows) // 2]
+    prof = profile_run(lambda: train_step(state, *crops[0]), top=8)
+    return {"tile": tile, "batch": batch, "ms_per_step": ms, "windows_ms": windows,
+            "mpix_s": batch * tile * tile / (ms * 1e3), "sample_crops_ms": sample_ms,
+            "profile": prof}
+
+
+def run_train_path(device: str = "cuda") -> dict:
+    """U-Net training on the card (``models.train``, the generalist
+    script's recipe at full width): TRAIN_STEPS steps of ``train_step`` on
+    crops of a synthcells pool (every loss finite, the final EMA below the
+    first loss); one bf16 and one float32-model step on the card against
+    the same step on the CPU; ``save_checkpoint`` -> ``load_unet``, the
+    reloaded model's logits bit-equal to the trained one's; the sharded
+    step on TRAIN_SHARDS virtual shards of cuda:0 against the
+    single-device step; ms per step at tile 128 and 256 with a profile.
+    The launch counts of both hand kernels are set to 0 before the phase
+    and read after it: the path launches neither."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from imageprocess_tpu_torch.device import no_tf32
+    from imageprocess_tpu_torch.models.checkpoint import load_unet, save_checkpoint
+    from imageprocess_tpu_torch.models.golden import sample_crops
+    from imageprocess_tpu_torch.models.train import (
+        TrainConfig, create_train_state, make_sharded_train_step, train_step,
+        zero_gradient_biases)
+    from imageprocess_tpu_torch.ops import roi_stats_kernel as rsk
+    from imageprocess_tpu_torch.ops import tile_stats_kernel as tsk
+    from imageprocess_tpu_torch.parallel.runner import Mesh
+
+    t_phase = time.perf_counter()
+    tsk.reset_launches()
+    rsk.reset_launches()
+    rng = np.random.default_rng(7)
+    t0 = time.perf_counter()
+    pool = train_pool(rng, device)
+    pool_s = time.perf_counter() - t0
+    cfg = TrainConfig(features=TRAIN_FEATURES, tile=TRAIN_TILE, batch_size=TRAIN_BATCH,
+                      decay_steps=TRAIN_STEPS)
+    state = create_train_state(cfg, torch.Generator().manual_seed(0), device=device)
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        batch = sample_crops(rng, *pool[rng.integers(len(pool))], TRAIN_TILE, TRAIN_BATCH)
+        state, loss = train_step(state, *batch, w_grad=cfg.grad_loss_weight)
+        losses.append(loss)
+    losses = torch.stack(losses).cpu().numpy()
+    train_s = time.perf_counter() - t0
+    if not np.isfinite(losses).all():
+        raise SmokeError(f"train: non-finite losses at steps "
+                         f"{np.flatnonzero(~np.isfinite(losses)).tolist()}")
+    ema = [float(losses[0])]
+    for v in losses[1:]:
+        ema.append(0.9 * ema[-1] + 0.1 * float(v))
+    if not ema[-1] < ema[0] or state.step != TRAIN_STEPS:
+        raise SmokeError(f"train: EMA {ema[0]:.4f} -> {ema[-1]:.4f} after "
+                         f"{state.step} steps")
+
+    # one step on the card against the same step on the CPU
+    batch = sample_crops(rng, *pool[0], TRAIN_TILE, TRAIN_BATCH)
+    vs_cpu = {}
+    for name, dtype, bars in (("bf16", torch.bfloat16, (1e-3, 5e-2)),
+                              ("f32", torch.float32, (1e-5, 1e-4))):
+        card, cpu = (create_train_state(cfg, torch.Generator().manual_seed(1), device=d,
+                                        dtype=dtype) for d in (device, "cpu"))
+        card, loss_card = train_step(card, *batch)
+        cpu, loss_cpu = train_step(cpu, *batch)
+        r = {"loss_rel": abs(float(loss_card) - float(loss_cpu)) / float(loss_cpu),
+             "grad_rel": _grad_rel(card.model, cpu.model), "bars": bars}
+        if r["loss_rel"] > bars[0] or r["grad_rel"] > bars[1]:
+            raise SmokeError(f"train: the card's {name} step against the CPU's: {r}")
+        vs_cpu[name] = r
+
+    # save, reload, the same logits bit for bit
+    x = torch.as_tensor(batch[0]).permute(0, 3, 1, 2).to(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        save_checkpoint(tmp, state.model, {"tile": 256, "train_tile": TRAIN_TILE,
+                                           "steps": TRAIN_STEPS})
+        reloaded, tile = load_unet(tmp)
+    reloaded.to(device)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with torch.no_grad(), no_tf32():
+            same = torch.equal(reloaded(x), state.model(x))
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    if not same or tile != 256:
+        raise SmokeError(f"train: the reloaded checkpoint's logits differ (tile {tile})")
+
+    # the sharded step on virtual shards of cuda:0 against the single-device step
+    single, sharded, update = (create_train_state(cfg, torch.Generator().manual_seed(2),
+                                                  device=device, dtype=torch.float32)
+                               for _ in range(3))
+    single, loss1 = train_step(single, *batch)
+    mesh = Mesh((device,) * TRAIN_SHARDS)
+    sharded, loss_s = make_sharded_train_step(mesh)(sharded, *batch)
+    # the update itself: the same optimizer step from the averaged gradients
+    for p, q in zip(update.model.parameters(), sharded.model.parameters()):
+        p.grad = q.grad.clone()
+    update.optimizer.step()
+    skip = zero_gradient_biases(single.model)
+    mesh_r = {"loss_rel": abs(float(loss_s) - float(loss1)) / float(loss1),
+              "grad_rel": _grad_rel(sharded.model, single.model),
+              "update_equal": _params_moved(update.model, sharded.model) == 0.0,
+              "step": sharded.step, "skipped_biases": skip, **_params_where_gradients_agree(
+                  sharded.model, single.model, skip, cfg.lr)}
+    if (mesh_r["loss_rel"] > 1e-6 or mesh_r["grad_rel"] > 1e-4 or not mesh_r["update_equal"]
+            or mesh_r["params_over_lr"] > 0.1 or sharded.step != 1):
+        raise SmokeError(f"train: sharded step against the single-device step: {mesh_r}")
+
+    times = {f"tile {t}": time_train_steps(t, TRAIN_BATCH, rng, pool, device)
+             for t in (TRAIN_TILE, GOLDEN_TRAIN_TILE)}
+    launches = {"tilestats_u16": tsk.launches["tilestats_u16"],
+                "roistats_f32": rsk.launches["roistats_f32"]}
+    if any(launches.values()):
+        raise SmokeError(f"train: hand kernels launched on the training path: {launches}")
+    return {"steps": TRAIN_STEPS, "pool": TRAIN_POOL, "pool_s": pool_s, "train_s": train_s,
+            "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+            "ema": {k: ema[k] for k in sorted({*range(0, TRAIN_STEPS, 50), TRAIN_STEPS - 1})},
+            "vs_cpu": vs_cpu, "mesh": mesh_r, "times": times, "launches": launches,
+            "s": time.perf_counter() - t_phase}
+
+
 def build_kernels() -> None:
     """Build every kernel, one nvcc each, all started together."""
     from imageprocess_tpu_torch.kernels import build
@@ -4150,6 +4389,44 @@ def main(argv) -> int:
     print(json.dumps({"mesh": {"runs": mr["runs"], "seg": ms, "frame_ops_s": mf["s"],
                                "phase_s": mesh["s"]}, "card": card}))
     stamp("mesh")
+    tr = run_train_path("cuda")
+    ema = tr["ema"]
+    print(f"train path ok: train_step(device='cuda') x {tr['steps']} at features "
+          f"{TRAIN_FEATURES}, tile {TRAIN_TILE}, batch {TRAIN_BATCH}, decay_steps "
+          f"{tr['steps']} on crops of a pool of {tr['pool']} synthcells frames "
+          f"{TRAIN_FRAME_HW}x{TRAIN_FRAME_HW} (the script's 160, cut; pool "
+          f"{tr['pool_s']:.2f} s): every loss finite, loss {tr['loss_first']:.4f} -> "
+          f"{tr['loss_last']:.4f}, EMA " + ", ".join(
+              f"step {k} {v:.4f}" for k, v in ema.items())
+          + f"; {tr['train_s']:.2f} s on {card} with the host's crop sampling")
+    for name, r in tr["vs_cpu"].items():
+        print(f"train step card vs CPU ({name} model, same params and batch): loss "
+              f"rel {r['loss_rel']:.3e} (bar {r['bars'][0]:g}), gradients rel norm "
+              f"{r['grad_rel']:.3e} (bar {r['bars'][1]:g})")
+    m = tr["mesh"]
+    print(f"train sharded step ok: make_sharded_train_step on {TRAIN_SHARDS} virtual "
+          f"shards of cuda:0 (f32 model) against train_step: loss rel "
+          f"{m['loss_rel']:.3e}, gradients rel norm {m['grad_rel']:.3e}, the update "
+          f"equal to one AdamW step from the averaged gradients, params within "
+          f"{m['params_over_lr']:.3e} lr where the two gradients agree to 10 % "
+          f"({m['apart']} elements where they do not: within "
+          f"{m['apart_over_lr']:.3e} lr; zero-gradient biases left out: "
+          f"{m['skipped_biases']}), step {m['step']}; "
+          f"save_checkpoint -> load_unet: logits bit-equal; hand-kernel launches "
+          f"{tr['launches']}")
+    for name, t in tr["times"].items():
+        pr = t["profile"]
+        print(f"train step at {name}, batch {t['batch']} on {card}: "
+              f"{t['ms_per_step']:.3f} ms per step (median of windows "
+              f"{[round(x, 3) for x in t['windows_ms']]} of {TRAIN_WINDOW_STEPS} steps), "
+              f"{t['mpix_s']:.2f} Mpix/s; sample_crops {t['sample_crops_ms']:.3f} ms "
+              f"per batch on the host; one step under torch.profiler "
+              f"{1e3 * pr['wall_s']:.3f} ms, device busy {pr['device_ms']:.3f} ms over "
+              f"{pr['events']} kernels and copies (idle {100 * pr['idle_share']:.1f} %); "
+              f"largest: {pr['top']}")
+    print(f"train phase: {tr['s']:.1f} s on {card}")
+    print(json.dumps({"train": tr, "card": card}))
+    stamp("training")
     workers = max(8, (os.cpu_count() or 1) * 2)
     dec = time_host_decode(data, workers)
     print(f"host share alone on this machine ({os.cpu_count()} cores, "
@@ -4231,6 +4508,8 @@ def main(argv) -> int:
             "shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "bytes",
             "valid", "grid", "use_smem", "stage_mask")}
             for label, tm in n2_times.items()}}}
+    for name in KERNELS:  # the training path launches neither (0)
+        extra[name]["launches_train"] = tr["launches"][name]
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": KERNELS[name][0],
         "replaces": KERNELS[name][1], "launches": launches,

@@ -1,4 +1,4 @@
-"""U-Net checkpoints carried across from flax (numpy only).
+"""U-Net checkpoints in flax's layout, read and written (numpy only).
 
 A bundled checkpoint is a directory with ``config.json`` (``features``,
 ``tile``) and ``params.npz``, whose keys are the flax params paths as
@@ -11,6 +11,9 @@ rest the decoder; ``ConvTranspose_j`` are the up-samplings and ``Conv_0``
 the 1x1 head.  Kernels map HWIO -> OIHW; ConvTranspose kernels are flipped
 spatially and map to torch's (in, out, kh, kw), because flax's
 ``transpose_kernel=False`` convolution is the unflipped one.
+:func:`params_to_flax` is the exact inverse, so :func:`save_checkpoint`
+writes what the JAX package's training script writes and both packages'
+loaders read it.
 """
 
 from __future__ import annotations
@@ -81,6 +84,72 @@ def params_from_flax(tree) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _block_index(base: str, n_levels: int) -> int:
+    """The call-order ``ConvBlock_i`` index of a port block name (the
+    inverse of :func:`_block_name`)."""
+    if base == "bottleneck":
+        return n_levels
+    kind, i = base.split(".")
+    return int(i) if kind == "down" else n_levels + 1 + int(i)
+
+
+def params_to_flax(state_dict) -> Dict[str, np.ndarray]:
+    """The flax params of the port's ``UNet`` *state_dict*, as the
+    ``{keystr: float32 array}`` dict of a checkpoint's ``params.npz``:
+    the exact inverse of :func:`params_from_flax`."""
+    n_levels = sum(1 for k in state_dict if k.startswith("up.") and k.endswith(".weight"))
+    out = {}
+    for key, v in state_dict.items():
+        name, leaf = key.rsplit(".", 1)
+        a = v.detach().cpu().numpy().astype(np.float32, copy=False)
+        if name == "head":
+            path = ("Conv_0",)
+        elif name.startswith("up."):
+            path = (f"ConvTranspose_{name.split('.')[1]}",)
+        else:
+            base, sub = name.rsplit(".", 1)
+            i = _block_index(base, n_levels)
+            mod = f"{'Conv' if sub.startswith('conv') else 'GroupNorm'}_{sub[-1]}"
+            path = (f"ConvBlock_{i}", mod)
+        if leaf == "bias":
+            flax_leaf = "bias"
+        elif path[-1].startswith("GroupNorm"):
+            flax_leaf = "scale"
+        else:
+            flax_leaf = "kernel"
+            a = (a.transpose(2, 3, 0, 1)[::-1, ::-1] if name.startswith("up.")
+                 else a.transpose(2, 3, 1, 0))
+        keystr = "".join(f"['{p}']" for p in ("params",) + path + (flax_leaf,))
+        out[keystr] = np.ascontiguousarray(a)
+    return out
+
+
+def save_checkpoint(path: str, model: UNet, config: Mapping) -> None:
+    """Write *model* as the generalist training script does: the flax
+    params in ``params.npz`` (``np.savez_compressed``) and ``config.json``
+    with the model's ``features`` and the fields of *config* (``tile``,
+    the inference tile, and the training fields)."""
+    os.makedirs(path, exist_ok=True)
+    np.savez_compressed(os.path.join(path, "params.npz"),
+                        **params_to_flax(model.state_dict()))
+    meta = {"features": list(model.features), **dict(config)}
+    with open(os.path.join(path, "config.json"), "w", encoding="utf-8") as f:
+        json.dump(meta, f, indent=1)
+
+
+def load_checkpoint(path: str) -> Dict[str, np.ndarray]:
+    """The ``{keystr: array}`` dict of a checkpoint's ``params.npz`` (what
+    :func:`params_from_flax` reads); raises for an orbax checkpoint
+    directory, which only the JAX package reads."""
+    npz = os.path.join(path, "params.npz")
+    if not os.path.exists(npz):
+        raise FileNotFoundError(
+            f"{path!r} has no params.npz: an orbax checkpoint is read by the "
+            "JAX package only (imageprocess_tpu.models.checkpoint)")
+    with np.load(npz) as data:
+        return {k: data[k] for k in data.files}
+
+
 def load_unet(ckpt_dir: str, dtype: torch.dtype = torch.bfloat16
               ) -> Tuple[UNet, int]:
     """(UNet in eval mode on the CPU, inference tile) of a checkpoint
@@ -88,7 +157,5 @@ def load_unet(ckpt_dir: str, dtype: torch.dtype = torch.bfloat16
     with open(os.path.join(ckpt_dir, "config.json"), encoding="utf-8") as f:
         meta = json.load(f)
     model = UNet(features=tuple(meta["features"]), dtype=dtype)
-    with np.load(os.path.join(ckpt_dir, "params.npz")) as data:
-        sd = params_from_flax({k: data[k] for k in data.files})
-    model.load_state_dict(sd)
+    model.load_state_dict(params_from_flax(load_checkpoint(ckpt_dir)))
     return model.eval(), int(meta.get("tile", 128))

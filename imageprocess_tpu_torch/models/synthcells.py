@@ -8,7 +8,9 @@ cos(k theta + phi_k)) rasterized from the radial bound; touching cells
 go to the highest normalized interiorness (1 - d / r(theta)).  Intensity
 fields are raw-camera-like: u16 range, background gradients, vignetting,
 Gaussian read noise, optional Poisson shot noise.  ``synth_frame`` draws
-one field; ``eval_frame`` the deterministic held-out field of a seed.
+one field; ``eval_frame`` the deterministic held-out field of a seed;
+``frame_arrays`` a field's training triplet (its stretch runs on the port's
+device path, the rest is numpy).
 """
 
 from __future__ import annotations
@@ -163,6 +165,48 @@ def _render(rng: np.random.Generator, labels: np.ndarray, score: np.ndarray,
     if rng.random() < 0.5:
         img = rng.poisson(img).astype(np.float32)
     return img.astype(np.float32)
+
+
+def stretch_for_training(img: np.ndarray, device="cuda") -> np.ndarray:
+    """The 1-99 percentile stretch that ``segment.cellseg`` applies at
+    inference (``ops.view.stretch_view``), run on *device*: float32 HxW in
+    [0, 1] on the host."""
+    import torch
+
+    from ..device import resolve_device
+    from ..ops.view import stretch_view
+
+    x = torch.as_tensor(np.asarray(img, np.float32)).to(resolve_device(device))
+    return stretch_view(x, 1000, 99000, 1.0, False).cpu().numpy()
+
+
+def frame_arrays(img: np.ndarray, labels: np.ndarray, device="cuda"):
+    """(normalized x, probs, flows) training triplet from a synthetic frame
+    — same supervision construction as models.golden.frame_training_arrays
+    (inference-matched 1-99 stretch, centroid-pointing unit flows)."""
+    H, W = img.shape
+    x = stretch_for_training(img, device)
+    probs = (labels > 0).astype(np.float32)
+    flows = np.zeros((H, W, 2), np.float32)
+    # single pass over foreground pixels (not O(n_cells * H * W) full-frame
+    # sweeps): per-label centroids via bincount, then each pixel's flow from
+    # its own label's centroid by a gather
+    ys, xs = np.nonzero(labels)
+    if ys.size:
+        labs = labels[ys, xs].astype(np.int64)
+        nlab = int(labs.max())
+        cnt = np.bincount(labs, minlength=nlab + 1).astype(np.float64)
+        cnt[cnt == 0] = 1.0
+        cy = (np.bincount(labs, weights=ys, minlength=nlab + 1) / cnt)[labs]
+        cx = (np.bincount(labs, weights=xs, minlength=nlab + 1) / cnt)[labs]
+        fy = ys.astype(np.float32)
+        fx = xs.astype(np.float32)
+        cy = cy.astype(np.float32)
+        cx = cx.astype(np.float32)
+        d = np.sqrt((fy - cy) ** 2 + (fx - cx) ** 2) + np.float32(1e-6)
+        flows[ys, xs, 0] = (cy - fy) / d
+        flows[ys, xs, 1] = (cx - fx) / d
+    return x, probs, flows
 
 
 def eval_frame(seed: int, domain: str, H: int = 512, W: int = 512,

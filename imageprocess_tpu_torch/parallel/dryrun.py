@@ -68,11 +68,14 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
     1d. a spatial collective: row-sharded connected-component labelling
         (halo exchange + summed change flags), bit-equal to the
         whole-frame labels;
+    2. the full sharded training step of the U-Net (features (8, 16),
+       tile 32, batch N) against the single-device step from the same
+       seed: loss within 1e-6 relative, parameters within 0.1 lr but for
+       the zero-gradient biases (``models.train``).  Both in a float32
+       model: in bf16, Adam turns the two paths' different roundings of
+       near-zero gradients into steps of +-lr;
     3. the U-Net tile batch split over the mesh (``roi-auto --devices N``),
-       with random weights from a seed: the same polygons.
-
-    Not run: JAX's sharded training step, which waits for the port of
-    training (ROADMAP Queue 1 item 11).
+       with the trained state's model: the same polygons.
     """
     from ..device import resolve_device
     from ..pipelines.fa import fa_batched_step, sharded_fa_batched_step
@@ -170,14 +173,37 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
     _same(lab, label(torch.from_numpy(fg).to(dev), connectivity=2).cpu(), "CCL")
     print(f"{tag}: sharded CCL OK — {int(lab.max())} components, exact parity")
 
-    # 3) the U-Net tile batch split over the mesh: identical polygons
-    from ..models.unet import UNet
+    # 2) the full sharded training step of the U-Net
+    from ..models.train import (
+        TrainConfig, create_train_state, make_sharded_train_step, synthetic_batch,
+        train_step, zero_gradient_biases,
+    )
+
+    tile = 32  # tiny shapes; divisible by 2^depth with features below
+    cfg = TrainConfig(features=(8, 16), tile=tile, batch_size=n_devices)
+    state, single = (create_train_state(cfg, torch.Generator().manual_seed(0), dev,
+                                        dtype=torch.float32) for _ in range(2))
+    rng = np.random.default_rng(0)
+    batch = synthetic_batch(rng, n_devices, tile)
+    state, loss = make_sharded_train_step(mesh, w_grad=cfg.grad_loss_weight)(state, *batch)
+    single, loss1 = train_step(single, *batch, w_grad=cfg.grad_loss_weight)
+    loss, loss1 = float(loss), float(loss1)
+    skip = set(zero_gradient_biases(state.model))
+    single_sd = single.model.state_dict()
+    moved = max(float((a - single_sd[name]).abs().max())
+                for name, a in state.model.state_dict().items() if name not in skip)
+    if abs(loss - loss1) > 1e-6 * abs(loss1) or moved > 0.1 * cfg.lr or state.step != 1:
+        raise AssertionError(f"{tag}: sharded train step differs from the single-device "
+                             f"step (loss {loss} vs {loss1}, params {moved / cfg.lr:.3g} lr)")
+    print(f"{tag}: train step OK — loss {loss:.4f}, step {state.step}")
+
+    # 3) the U-Net tile batch split over the mesh, with the trained state's
+    # model: identical polygons
     from ..segment.cellseg import segment_frame_unet
 
-    torch.manual_seed(0)
-    model = UNet(features=(8, 16)).to(dev)
-    frame = np.random.default_rng(0).normal(100.0, 20.0, (48, 80)).astype(np.float32)
-    kw = dict(tile=32, overlap=4, min_size_px=5, prob_threshold=0.3, device=dev)
+    model = state.model
+    frame = rng.normal(100.0, 20.0, (48, 80)).astype(np.float32)
+    kw = dict(tile=tile, overlap=4, min_size_px=5, prob_threshold=0.3, device=dev)
     single = segment_frame_unet(frame, model, **kw)
     sharded = segment_frame_unet(frame, model, mesh=mesh, **kw)
     if len(single) != len(sharded) or not all(

@@ -19,6 +19,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "imageprocess_tpu_torch")
 
 
+TRAIN_SCRIPT = os.path.join(REPO, "scripts", "train_unet_general_torch.py")
+
+
 def _port_sources():
     out = [os.path.join(REPO, "chip_smoke.py")]
     for root, dirs, files in os.walk(PORT):
@@ -41,12 +44,12 @@ def _imported(path):
             yield node.module, id(node) in in_function
 
 
-@pytest.mark.parametrize("path", _port_sources(),
+@pytest.mark.parametrize("path", _port_sources() + [TRAIN_SCRIPT],
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_no_jax_or_reference_package_import(path):
     for name, in_function in _imported(path):
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", "flax", "optax", "imageprocess_tpu",
+        assert top not in ("jax", "jaxlib", "flax", "optax", "orbax", "imageprocess_tpu",
                            "pandas", "matplotlib"), (path, name)
         assert top != "h5py" or in_function, (path, name)
 
@@ -68,6 +71,9 @@ def test_main_path_import_pulls_in_no_jax_pil_pandas():
         "import imageprocess_tpu_torch.core.runlog\n"
         "import imageprocess_tpu_torch.kernels.build\n"
         "import imageprocess_tpu_torch.models.checkpoint\n"
+        "import imageprocess_tpu_torch.models.train\n"
+        "import imageprocess_tpu_torch.models.golden\n"
+        "import imageprocess_tpu_torch.models.synthcells\n"
         "import imageprocess_tpu_torch.morphology.binary\n"
         "import imageprocess_tpu_torch.morphology.ccl\n"
         "import imageprocess_tpu_torch.ops.view\n"
@@ -91,8 +97,37 @@ def test_main_path_import_pulls_in_no_jax_pil_pandas():
         "import imageprocess_tpu_torch.timing\n"
         "import chip_smoke\n"
         "mods = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'PIL', 'pandas', 'matplotlib', 'h5py', "
-        "'imageprocess_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'PIL', 'pandas', 'matplotlib', "
+        "'h5py', 'imageprocess_tpu')]\n"
+        "print(json.dumps(mods))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+
+
+def test_training_script_pulls_in_no_jax(tmp_path):
+    """The port's training script, loaded and asked to write into the JAX
+    package (which it refuses before any work), with the training modules
+    imported: no jax, flax, optax, orbax, matplotlib or JAX-package module
+    is loaded, and no module from a file under imageprocess_tpu/."""
+    code = (
+        "import importlib.util, json, os, sys\n"
+        "import imageprocess_tpu_torch.models.train\n"
+        "import imageprocess_tpu_torch.models.golden\n"
+        "import imageprocess_tpu_torch.models.synthcells\n"
+        f"spec = importlib.util.spec_from_file_location('train_script', {TRAIN_SCRIPT!r})\n"
+        "mod = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(mod)\n"
+        "try:\n"
+        "    mod.main([os.path.join('imageprocess_tpu', 'models', 'x'), '--device', 'cpu'])\n"
+        "except SystemExit as e:\n"
+        "    assert 'refusing' in str(e), e\n"
+        "ref = os.path.join(os.getcwd(), 'imageprocess_tpu', '')\n"
+        "mods = [m for m, v in sys.modules.items() if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'matplotlib', 'imageprocess_tpu') "
+        "or (getattr(v, '__file__', None) or '').startswith(ref)]\n"
         "print(json.dumps(mods))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -300,8 +300,10 @@ def test_dryrun_multichip_on_a_cpu_mesh(capsys):
 
     dryrun_multichip(4, device="cpu")
     lines = capsys.readouterr().out.splitlines()
-    assert len(lines) == 7 and all(ln.startswith("dryrun_multichip(4, cpu): ")
+    assert len(lines) == 8 and all(ln.startswith("dryrun_multichip(4, cpu): ")
                                    and " OK" in ln for ln in lines)
+    assert lines[6].startswith("dryrun_multichip(4, cpu): train step OK — loss ")
+    assert lines[6].endswith(", step 1")
 
 
 @pytest.mark.cuda
