@@ -29,7 +29,8 @@ one 1536 x 2048 frame
 golden checkpoint), ROI refinement (``.segment.drawer.refine_and_save``),
 the FRET timelapse deck (``.pipelines.fretppt.run_fret_ppt``) and the
 command line users run them through (``imageprocess_tpu_torch.cli``: the
-commands, ``--xprof`` and ``doctor``).  Phases, each
+commands, ``--xprof`` and ``doctor``), U-Net training and the interactive
+apps' core (the ROI annotator, the FA tuner).  Phases, each
 of which exits non-zero on failure:
 
 1. the card's name and power limit;
@@ -197,7 +198,19 @@ of which exits non-zero on failure:
    10 %); ms per step and Mpix/s at tile 128 and at tile 256 (the golden
    script's crop) with one step under ``torch.profiler``; neither hand
    kernel launches;
-19. kernel and plain times per chunk: each kernel's time per call through
+19. the interactive apps' core, headless (no matplotlib): the ROI
+   annotator (``apps.draw.ROIAnnotator``) on stage S01 (channels 2 and 3):
+   18 rough polygons (each ROI circle 15 px wider, 12 vertices) refined on
+   the card equal to the CPU's; every ``handle_key`` binding; ``rendered()``
+   with each filter alone (band-pass, unsharp, CLAHE, Sobel edges) within
+   1e-5 of the CPU's, all four on within 1e-5 on 99.9 % of the pixels;
+   ``save()``'s bundle equal to the CPU's; reopened, 18 ROIs on the saved
+   channel.  The FA tuner (``apps.fa_tune.FATuner``) on FA stage 1:
+   ``reanalyze``, ``set_params`` on one cell and globally, the rows equal
+   to the CPU's; ``select_cell_at`` each cell's centre; the CSV.  The
+   median of 5 ms per action with its kernels and copies under
+   ``torch.profiler``; neither hand kernel launches;
+20. kernel and plain times per chunk: each kernel's time per call through
    its Python wrapper against the plain version's (CUDA events around 50
    calls, in turns plain / kernel / kernel / plain), the kernel's device
    time by CUDA graph replay (the wrapper's host time left out), the grid
@@ -213,7 +226,8 @@ masked moments with six exact order statistics -- and
 ``launches_per_run``, ``launches_mesh`` (per runner and mesh); ``roistats_f32`` also ``launches_serial`` and its
 ``serial_shapes`` times, ``launches_nesprin2`` and its ``nesprin2_shapes``
 times, ``launches_tiff_outputs``, ``launches_image_outputs``,
-``launches_figures``; both ``launches_cli`` and ``launches_train``), then
+``launches_figures``; both ``launches_cli``, ``launches_train`` and
+``launches_apps``), then
 ``{"ok": true, "device": {...}}``.  Without
 a card, or outside a checkout, it prints no result and exits non-zero.
 
@@ -3979,6 +3993,210 @@ def run_train_path(device: str = "cuda") -> dict:
             "s": time.perf_counter() - t_phase}
 
 
+# ------------------------------------------------------------------ the interactive apps
+
+APPS_INFLATE = 15            # px: each rough polygon, a circle 15 px beyond its ROI
+APPS_VERTICES = 12
+APPS_REPS = 5                # timed calls per action (the median is printed)
+APPS_RENDER_BAR = 1e-5       # absolute, RGB in [0, 1]
+APPS_ALL_FOUR_SHARE = 0.999  # of the pixels within the bar with all four filters on
+APPS_KEYS = ("a", "d", "s", "f", "g", "G", "v", "1", "2", "3", "4", "5", "0",
+             "i", "i", "e", "b", "n", "o", "e", "b", "n", "o", "tab", "shift+tab")
+APPS_FILTERS = {
+    "none": {},
+    "bandpass": {"use_bandpass": True},
+    "unsharp": {"use_unsharp": True},
+    "clahe": {"use_clahe": True},
+    "edges": {"edge_overlay": True},
+    "all four": {"use_bandpass": True, "use_unsharp": True, "use_clahe": True,
+                 "edge_overlay": True},
+}
+
+
+def _median_ms(fn, reps: int = APPS_REPS) -> float:
+    """The median wall ms of *reps* calls of *fn* on the card (synchronized
+    around each), after one warm call."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return sorted(times)[reps // 2]
+
+
+def _tuner_rows_close(got, want, what: str) -> float:
+    """FA tuner rows (``analyze_image_with_overrides``): as many, cells,
+    labels, categories and areas equal, the intensities and centroids
+    within REL_TOL relative."""
+    if len(got) != len(want):
+        raise SmokeError(f"{what}: {len(got)} rows vs {len(want)}")
+    worst = 0.0
+    for a, b in zip(got, want):
+        for k in ("cell", "label", "category", "area"):
+            if a[k] != b[k]:
+                raise SmokeError(f"{what} cell {b['cell']} {k}: {a[k]!r} vs {b[k]!r}")
+        pairs = [(a[k], b[k]) for k in ("mean_int_raw", "mean_int_corr", "int_den_raw",
+                                        "int_den_corr", "bg_level")]
+        for x, y in pairs + list(zip(a["centroid"], b["centroid"])):
+            rel = abs(x - y) / max(abs(y), 1e-9)
+            worst = max(worst, rel)
+            if not rel <= REL_TOL:
+                raise SmokeError(f"{what} cell {b['cell']}: {x} vs {y} ({rel:.2e} rel)")
+    return worst
+
+
+def _csv_cells_close(got: str, want: str, what: str) -> int:
+    """Two CSV files: the same header and strings, numbers within REL_TOL
+    relative; returns the rows."""
+    import csv
+
+    with open(got, newline="", encoding="utf-8") as f, \
+            open(want, newline="", encoding="utf-8") as g:
+        a, b = list(csv.reader(f)), list(csv.reader(g))
+    if len(a) != len(b) or a[:1] != b[:1]:
+        raise SmokeError(f"{what}: {len(a)} lines vs {len(b)}, headers {a[:1]} vs {b[:1]}")
+    for ra, rb in zip(a[1:], b[1:]):
+        for x, y in zip(ra, rb):
+            if x == y:
+                continue
+            try:
+                fx, fy = float(x), float(y)
+            except ValueError:
+                raise SmokeError(f"{what}: {x!r} vs {y!r}")
+            if not abs(fx - fy) <= REL_TOL * max(abs(fy), 1e-9):
+                raise SmokeError(f"{what}: {x} vs {y}")
+    return len(a) - 1
+
+
+def run_apps_path(data: str, fa_dir: str, device: str = "cuda") -> dict:
+    """The interactive apps' core on the card, headless (no matplotlib
+    here): ``apps.draw.ROIAnnotator`` on stage S01 of the tables dataset
+    (channels 2 and 3, 1536 x 2048) and ``apps.fa_tune.FATuner`` on stage 1
+    of the FA experiment, each against the same object on the CPU.  The
+    annotator: 18 rough polygons (each ROI circle inflated by
+    APPS_INFLATE px, APPS_VERTICES vertices) refined on the card equal to
+    the CPU's; every ``handle_key`` binding; ``rendered()`` with each
+    filter alone within APPS_RENDER_BAR of the CPU's, with all four on
+    within it on APPS_ALL_FOUR_SHARE of the pixels (CLAHE bin flips
+    counted); ``save()``'s bundle equal to the CPU's (JSON, mask, overlay,
+    zip entries); reopened, 18 ROIs on the saved channel.  The tuner:
+    ``reanalyze`` rows, ``select_cell_at`` at each cell's centre,
+    ``set_params`` on one cell and globally, the saved CSV, each against
+    the CPU's.  Times: the median of APPS_REPS calls per action, its
+    kernels and copies under ``torch.profiler``.  The launch counts of both
+    hand kernels are set to 0 before the phase and read after it: the apps
+    launch neither."""
+    import tempfile
+
+    import numpy as np
+
+    from imageprocess_tpu_torch.apps.draw import ROIAnnotator
+    from imageprocess_tpu_torch.apps.fa_tune import FATuner
+    from imageprocess_tpu_torch.ops import roi_stats_kernel as rsk
+    from imageprocess_tpu_torch.ops import tile_stats_kernel as tsk
+    from imageprocess_tpu_torch.segment.drawer import DEFAULT_VIEW_PARAMS
+
+    t_phase = time.perf_counter()
+    tsk.reset_launches()
+    rsk.reset_launches()
+    quiet = dict(log=lambda *_: None)
+    work = tempfile.mkdtemp(dir=data)
+    chmap = {ch: os.path.join(data, f"S01_{ch}.TIF") for ch in CHANNELS}
+    centres = [(150 + 200 * (i % 8), 150 + 300 * (i // 8)) for i in range(N_ROI)]
+    rough = [_circle(cx, cy, ROI_RADIUS + APPS_INFLATE, APPS_VERTICES) for cx, cy in centres]
+    dirs = {d: os.path.join(work, d) for d in ("card", "cpu", "scratch")}
+    card = ROIAnnotator(chmap, "S01", dirs["card"], device=device, **quiet)
+    cpu = ROIAnnotator(chmap, "S01", dirs["cpu"], device="cpu", **quiet)
+    refined = 0
+    for i, r in enumerate(rough):
+        a, b = card.add_rough_polygon(r), cpu.add_rough_polygon(r)
+        if a.shape != b.shape or not np.array_equal(a, b):
+            raise SmokeError(f"apps: ROI {i + 1}'s polygon on the card differs from the CPU's")
+        refined += not np.array_equal(a, r)
+    scratch = ROIAnnotator(chmap, "S01", dirs["scratch"], device=device, **quiet)
+    times = {"add_rough_polygon": _median_ms(lambda: scratch.add_rough_polygon(rough[0]))}
+    profiles = {"add_rough_polygon": profile_run(lambda: scratch.add_rough_polygon(rough[0]))}
+
+    # every binding: the view keys on both annotators, u / c on the scratch one
+    for key in APPS_KEYS:
+        if not (card.handle_key(key) and cpu.handle_key(key)):
+            raise SmokeError(f"apps: key {key!r} not bound")
+    n = len(scratch.rois)
+    if not (scratch.handle_key("u") and len(scratch.rois) == n - 1
+            and scratch.handle_key("c") and scratch.rois == []
+            and not scratch.handle_key("w")):
+        raise SmokeError("apps: keys u / c / an unbound key")
+    if card.view != cpu.view or card.channel != 2:
+        raise SmokeError(f"apps: views after the keys {card.view} vs {cpu.view}")
+
+    renders = {}
+    for name, setting in APPS_FILTERS.items():
+        for ann in (card, cpu):
+            ann.view = {**DEFAULT_VIEW_PARAMS, **setting}
+        got, want = card.rendered(), cpu.rendered()
+        diff = np.abs(got - want)
+        share = float((diff <= APPS_RENDER_BAR).all(axis=-1).mean())
+        r = renders[name] = {"max_abs": float(diff.max()), "share_within": share}
+        if name == "all four":
+            r["differing_pixels"] = int((diff > APPS_RENDER_BAR).any(axis=-1).sum())
+            if share < APPS_ALL_FOUR_SHARE:
+                raise SmokeError(f"apps: rendered() with all four filters: {r}")
+        elif r["max_abs"] > APPS_RENDER_BAR:
+            raise SmokeError(f"apps: rendered() with {name}: {r}")
+        times[f"rendered ({name})"] = _median_ms(card.rendered)
+        profiles[f"rendered ({name})"] = profile_run(card.rendered)
+    for ann in (card, cpu):
+        ann.view = dict(DEFAULT_VIEW_PARAMS)
+        ann.handle_key("tab")                    # saved as last_channel 3
+        ann.save()
+    g, w = tree_files(dirs["card"]), tree_files(dirs["cpu"])
+    if sorted(g) != sorted(w) or any(g[k] != w[k] for k in w):
+        raise SmokeError(f"apps: bundle {sorted(g)} differs from the CPU's {sorted(w)}")
+    back = ROIAnnotator(chmap, "S01", dirs["card"], device=device, **quiet)
+    if len(back.rois) != N_ROI or back.channel != 3:
+        raise SmokeError(f"apps: reopened {len(back.rois)} ROIs on channel {back.channel}")
+
+    img = os.path.join(fa_dir, f"S01_{FA_CHANNEL}.TIF")
+    js = os.path.join(fa_dir, "roi", "S01.json")
+    tc = FATuner(img, js, "S01", os.path.join(work, "fa_card"), fa_config(),
+                 device=device, **quiet)
+    th = FATuner(img, js, "S01", os.path.join(work, "fa_cpu"), fa_config(),
+                 device="cpu", **quiet)
+    worst = _tuner_rows_close(tc._rows, th._rows, "apps: tuner reanalyze")
+    for i, (cx, cy) in enumerate(centres):
+        if tc.select_cell_at(cx, cy) != i or th.select_cell_at(cx, cy) != i:
+            raise SmokeError(f"apps: select_cell_at cell {i + 1}'s centre")
+    for sel, kw in ((0, dict(alpha=4.0, close_radius=2)),
+                    (None, dict(alpha=2.5, min_area_um=0.5))):
+        for t_ in (tc, th):
+            t_.selected = sel
+            t_.set_params(**kw)
+        worst = max(worst, _tuner_rows_close(tc._rows, th._rows, f"apps: set_params {kw}"))
+    fa_rows = _csv_cells_close(tc.save(), th.save(), "apps: tuner CSV")
+    times["reanalyze"] = _median_ms(tc.reanalyze)
+    profiles["reanalyze"] = profile_run(tc.reanalyze)
+    tc.selected = 3
+    alphas = iter([3.0, 3.5] * APPS_REPS)
+    times["set_params"] = _median_ms(lambda: tc.set_params(alpha=next(alphas)))
+    profiles["set_params"] = profile_run(lambda: tc.set_params(alpha=3.0))
+
+    launches = {"tilestats_u16": tsk.launches["tilestats_u16"],
+                "roistats_f32": rsk.launches["roistats_f32"]}
+    if any(launches.values()):
+        raise SmokeError(f"apps: hand kernels launched on the apps' path: {launches}")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"refined": refined, "renders": renders, "fa_rows": fa_rows,
+            "fa_cells": len(tc.rois), "tuner_max_rel": worst, "ms": times,
+            "events": {k: p["events"] for k, p in profiles.items()},
+            "idle": {k: p["idle_share"] for k, p in profiles.items()},
+            "launches": launches, "s": time.perf_counter() - t_phase}
+
+
 def build_kernels() -> None:
     """Build every kernel, one nvcc each, all started together."""
     from imageprocess_tpu_torch.kernels import build
@@ -4427,6 +4645,26 @@ def main(argv) -> int:
     print(f"train phase: {tr['s']:.1f} s on {card}")
     print(json.dumps({"train": tr, "card": card}))
     stamp("training")
+    ap = run_apps_path(data, fa_dir)
+    rd = ap["renders"]
+    print(f"apps ok: ROIAnnotator(device='cuda') on S01 ({H}x{W}, channels {CHANNELS}): "
+          f"{N_ROI} rough polygons ({APPS_VERTICES} vertices, {APPS_INFLATE} px beyond each "
+          f"ROI; {ap['refined']} refined) equal to the CPU's; {len(APPS_KEYS) + 3} key "
+          f"presses; rendered() vs the CPU: " + ", ".join(
+              f"{k} max {v['max_abs']:.2e} ({100 * v['share_within']:.4f} % within "
+              f"{APPS_RENDER_BAR:g})" for k, v in rd.items())
+          + f"; bundle equal to the CPU's, reopened with {N_ROI} ROIs on channel 3")
+    print(f"apps ok: FATuner(device='cuda') on FA stage 1 ({ap['fa_cells']} cells): "
+          f"reanalyze, set_params on one cell and globally: rows equal to the CPU's "
+          f"(floats max rel {ap['tuner_max_rel']:.3e}); select_cell_at each centre; the "
+          f"CSV ({ap['fa_rows']} rows) equal to the CPU's")
+    print(f"apps times on {card} (median of {APPS_REPS} calls; kernels and copies of one "
+          f"call under torch.profiler, idle share): " + ", ".join(
+              f"{k} {v:.3f} ms ({ap['events'][k]} events, idle "
+              f"{100 * ap['idle'][k]:.1f} %)" for k, v in ap["ms"].items())
+          + f"; hand-kernel launches {ap['launches']}; phase {ap['s']:.1f} s")
+    print(json.dumps({"apps": ap, "card": card}))
+    stamp("apps")
     workers = max(8, (os.cpu_count() or 1) * 2)
     dec = time_host_decode(data, workers)
     print(f"host share alone on this machine ({os.cpu_count()} cores, "
@@ -4508,8 +4746,9 @@ def main(argv) -> int:
             "shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "bytes",
             "valid", "grid", "use_smem", "stage_mask")}
             for label, tm in n2_times.items()}}}
-    for name in KERNELS:  # the training path launches neither (0)
+    for name in KERNELS:  # the training path and the apps launch neither (0)
         extra[name]["launches_train"] = tr["launches"][name]
+        extra[name]["launches_apps"] = ap["launches"][name]
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": KERNELS[name][0],
         "replaces": KERNELS[name][1], "launches": launches,

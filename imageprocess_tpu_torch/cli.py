@@ -6,9 +6,11 @@ and exit codes, run with PyTorch on a card.
     imageprocess-torch fret       <folder> --donor-ch 1 --acceptor-ch 2 [...]
     imageprocess-torch nesprin2   <folder> --donor-ch 1 --fret-ch 2 [...]
     imageprocess-torch fa         <img_dir> --roi-dir R --out O [...]
+    imageprocess-torch fa-tune    <img_dir> --roi-dir R --out O [...]
     imageprocess-torch crop       <folder> --channel 1 [...]
     imageprocess-torch roi-auto   <folder> [--backend threshold|unet] [...]
     imageprocess-torch refine     <folder> [--thr 90] [...]
+    imageprocess-torch draw       <folder> [--timelapse]
     imageprocess-torch ppt        <png_folder> [--width-cm 2.0]
     imageprocess-torch doctor     [--json]
 
@@ -22,8 +24,8 @@ U-Net tile batch of ``roi-auto``) over the first N devices of
 ``--device``'s kind (``parallel.runner.make_mesh``); more than that kind
 has exits 1 with the reference's line (the CPU is one device).
 
-Not ported yet, raising ``NotImplementedError`` before a file is read or
-written: the interactive ``draw`` and ``fa-tune`` (``APPS``).
+The interactive ``draw`` and ``fa-tune`` open matplotlib windows (they need
+matplotlib and a display; their device work runs on ``--device``).
 """
 
 from __future__ import annotations
@@ -34,8 +36,6 @@ import sys
 from typing import List, Optional
 
 from .core import i18n
-
-APPS = "the interactive matplotlib apps (ROADMAP Queue 1 item 15)"
 
 
 def _add_common(p: argparse.ArgumentParser):
@@ -231,7 +231,7 @@ def build_parser() -> argparse.ArgumentParser:
     _add_device(p)
 
     p = sub.add_parser("fa-tune",
-                       help="interactive per-cell FA tuning (not ported yet)")
+                       help="interactive per-cell FA tuning (FAAnalyzerApp)")
     p.add_argument("img_dir")
     p.add_argument("--roi-dir", required=True)
     p.add_argument("--out", required=True)
@@ -239,8 +239,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--px-size", type=float, default=0.112)
     p.add_argument("--alpha", type=float, default=3.0)
     p.add_argument("--mat-dir", default=None, metavar="DIR",
-                   help="legacy MATLAB boundary dir: magenta dashed overlay")
+                   help="legacy MATLAB boundary dir: magenta dashed overlay "
+                        "in the tuner, toggled with 'm' (needs h5py)")
     p.add_argument("--lang", default=None, choices=["en", "ko"])
+    _add_device(p)
 
     p = sub.add_parser("crop", help="per-ROI channel crops (roi_channel_cropper)")
     p.add_argument("folder")
@@ -298,10 +300,26 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--channel", type=int, default=None)
     _add_common(p)
 
-    p = sub.add_parser("draw", help="interactive ROI annotator (not ported yet)")
+    p = sub.add_parser(
+        "draw",
+        help="interactive ROI annotator (roi_manual_drawer)",
+        formatter_class=argparse.RawDescriptionHelpFormatter,
+        epilog=(
+            "keys (reference roi_manual_drawer.py:1095-1141, 1273-1275):\n"
+            "  p          draw a rough polygon (auto-segmented inside)\n"
+            "  u          undo last ROI          c  clear all ROIs\n"
+            "  x          delete ROI at cursor   r  redraw ROI at cursor\n"
+            "  a / d      display floor -/+ 1%   s / f  display ceil -/+ 1%\n"
+            "  g / G      gamma -/+ 0.1          i  invert\n"
+            "  0-5        pseudocolor: gray/cyan/blue/green/red/yellow\n"
+            "  v          reset view (reference 'r'; 'r' here redraws)\n"
+            "  e/b/n/o    toggle CLAHE / bandpass / unsharp / Sobel edges\n"
+            "  tab / shift+tab  cycle channel    q  save & close"
+        ))
     p.add_argument("folder")
     p.add_argument("--timelapse", action="store_true")
     p.add_argument("--lang", default=None, choices=["en", "ko"])
+    _add_device(p)
 
     p = sub.add_parser("ppt", help="FRET timelapse deck (Make_FRET_timelapsePPT)")
     p.add_argument("folder")
@@ -387,15 +405,7 @@ def _parse_ch_map(specs, value_type, flag: str, shape: str) -> dict:
     return out
 
 
-def _refuse_unported(args) -> None:
-    """The commands of later slices raise before a file is read or
-    written."""
-    if args.cmd in ("draw", "fa-tune"):
-        raise NotImplementedError(f"{args.cmd} is not ported yet: {APPS}")
-
-
 def _dispatch(args, log) -> int:
-    _refuse_unported(args)
     if args.cmd == "intensity":
         from .pipelines.intensity import IntensityConfig, run_intensity
         from .report.render import PanelPngOptions
@@ -594,6 +604,16 @@ def _dispatch(args, log) -> int:
                             device=args.device)
         return 0
 
+    if args.cmd == "fa-tune":
+        from .apps.fa_tune import main as fa_tune_main
+        from .pipelines.fa import FaConfig
+
+        fa_tune_main(args.img_dir, args.roi_dir, args.out,
+                     FaConfig(channel=args.channel, px_size=args.px_size,
+                              alpha=args.alpha),
+                     mat_dir=args.mat_dir, log=log, device=args.device)
+        return 0
+
     if args.cmd == "crop":
         from .pipelines.crop import CropConfig, run_crop
 
@@ -644,6 +664,13 @@ def _dispatch(args, log) -> int:
         )
         refine_and_save(args.folder, cfg, roi_dir=args.out, log=log,
                         device=args.device)
+        return 0
+
+    if args.cmd == "draw":
+        from .apps.draw import main as draw_main
+
+        draw_main(args.folder, timelapse=args.timelapse, log=log,
+                  device=args.device)
         return 0
 
     if args.cmd == "ppt":

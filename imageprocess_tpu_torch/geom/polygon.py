@@ -5,7 +5,9 @@ rasterization and pixel statistics go to the device.  Formula parity with
 the reference: perimeter, shoelace area and the Andrew monotone-chain hull
 of src/MOR_by_ROI.py:166-191, the signed-area centroid with its
 vertex-mean fallback of src/roi_manual_drawer.py:421-433, and the
-Douglas-Peucker simplification of the drawer's refined contours.
+Douglas-Peucker simplification of the drawer's refined contours; and
+matplotlib's point-in-path test (``contains_point``), which the apps'
+click selection uses.
 """
 
 from __future__ import annotations
@@ -13,6 +15,27 @@ from __future__ import annotations
 from typing import List, Sequence, Tuple
 
 import numpy as np
+
+
+def contains_point(poly: np.ndarray, x: float, y: float) -> bool:
+    """``matplotlib.path.Path(poly).contains_point((x, y))`` without
+    matplotlib: the crossing test of ``point_in_path`` in matplotlib's
+    ``_path.h`` (radius 0), in float64.  The polygon is closed implicitly;
+    an edge (x0, y0) -> (x1, y1) whose ends lie on either side of the ray
+    (``y0 >= y`` differs from ``y1 >= y``) toggles the point when
+    ``((y1 - y) * (x0 - x1) >= (x1 - x) * (y0 - y1)) == (y1 >= y)``.
+    Fewer than 3 vertices, or a non-finite point, is outside.  The vertices
+    are finite (matplotlib would split a path at a NaN vertex)."""
+    P = np.asarray(poly, dtype=np.float64)
+    x, y = float(x), float(y)
+    if len(P) < 3 or not (np.isfinite(x) and np.isfinite(y)):
+        return False
+    x0, y0 = P[:, 0], P[:, 1]
+    x1, y1 = np.roll(x0, -1), np.roll(y0, -1)
+    above0, above1 = y0 >= y, y1 >= y
+    cross = (above0 != above1) & (((y1 - y) * (x0 - x1) >= (x1 - x) * (y0 - y1))
+                                  == above1)
+    return bool(np.count_nonzero(cross) & 1)
 
 
 def polygon_perimeter(poly: np.ndarray) -> float:

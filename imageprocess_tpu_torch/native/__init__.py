@@ -182,6 +182,15 @@ def decode_tiff(path: str, page: int = 0) -> Optional[np.ndarray]:
     return out
 
 
+def decode_tiff_batch(paths, page: int = 0) -> Optional[np.ndarray]:
+    """Decode N same-shaped TIFFs into one (N, H, W[, S]) array with one
+    native call (:func:`decode_tiff_batch_hist` without the histograms), or
+    None when a file is unsupported or does not match the first one's
+    shape."""
+    out = decode_tiff_batch_hist(paths, 0, page=page)
+    return None if out is None else out[0]
+
+
 def decode_tiff_batch_hist(paths, hist_stride: int, page: int = 0,
                            pool: Optional[FrameBufferPool] = None):
     """Decode N same-shaped TIFFs into one (N, H, W[, S]) array with one

@@ -8,9 +8,9 @@ view-rendered overlay PNG with numbered green outlines + ImageJ .zip),
 grouping (:1375-1433).
 
 The batch API refines rough polygons with ``segment_inside_polygon`` on
-*device* and persists full bundles; the interactive annotator stays with
-the JAX package (``apps.draw``).  PIL is imported only by the overlay
-writer.
+*device* and persists full bundles; the interactive annotator
+(``apps.draw``) saves through :func:`save_drawer_bundle` too.  PIL is
+imported only by the overlay writer.
 """
 
 from __future__ import annotations

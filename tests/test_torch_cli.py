@@ -13,8 +13,10 @@ package's (``imageprocess_tpu.cli``), without computing anything.
   positional arguments and output paths to the same runners.
 - Exit codes and the refusals: ``--devices`` above the count, malformed
   ``CH=VALUE`` pairs, ``ppt`` without pairs, no ``--device`` on a machine
-  without a card, and the commands and flags of later slices, which raise
-  before a file appears.
+  without a card.
+- The interactive ``draw`` and ``fa-tune`` through ``cli.main`` under Agg,
+  ``plt.show`` replaced by synthetic key presses and clicks: the files they
+  save equal the JAX CLI's driven the same way.
 """
 
 import argparse
@@ -32,8 +34,8 @@ from imageprocess_tpu_torch.core import i18n as ti18n
 
 COMMANDS = ("intensity", "morphology", "fret", "nesprin2", "fa", "fa-tune",
             "crop", "roi-auto", "refine", "draw", "ppt", "doctor")
-COMPUTING = ("intensity", "morphology", "fret", "nesprin2", "fa", "crop",
-             "roi-auto", "refine")
+COMPUTING = ("intensity", "morphology", "fret", "nesprin2", "fa", "fa-tune",
+             "crop", "roi-auto", "refine", "draw")
 RUNNERS = {  # runner: its module under either package
     "run_intensity": "pipelines.intensity",
     "run_intensity_batched": "pipelines.intensity",
@@ -47,6 +49,8 @@ RUNNERS = {  # runner: its module under either package
     "run_auto_drawer": "segment.auto",
     "refine_and_save": "segment.drawer",
     "run_fret_ppt": "pipelines.fretppt",
+    "draw.main": "apps.draw",          # module.function of the interactive apps
+    "fa_tune.main": "apps.fa_tune",
 }
 
 
@@ -148,7 +152,7 @@ def _record(monkeypatch, pkg):
             calls.append((_fn, args, kw))
             return (True, "recorded") if _fn == "run_fret_ppt" else []
 
-        monkeypatch.setattr(module, fn, fake)
+        monkeypatch.setattr(module, fn.split(".")[-1], fake)
     return calls
 
 
@@ -241,6 +245,11 @@ def _flags(d):
         "refine": [
             "--thr", "80", "--mode", "bnd", "--min-area", "20", "--tolerance", "2",
             "--channel", "2", "--out", o, "--timelapse"],
+        "fa-tune": [
+            "--roi-dir", str(d / "roi"), "--out", o, "--channel", "1",
+            "--px-size", "0.2", "--alpha", "2.5", "--mat-dir", str(d / "mat"),
+            "--lang", "ko"],
+        "draw": ["--timelapse", "--lang", "en"],
         "ppt": ["--width-cm", "3.5"],
     }
 
@@ -279,6 +288,10 @@ CASES = {  # id: (command, argv after the folder, the runners called)
     "roi-auto-defaults": ("roi-auto", [], ["run_auto_drawer"]),
     "refine-all-flags": ("refine", ["ALL"], ["refine_and_save"]),
     "refine-defaults": ("refine", [], ["refine_and_save"]),
+    "fa-tune-all-flags": ("fa-tune", ["ALL"], ["fa_tune.main"]),
+    "fa-tune-defaults": ("fa-tune", ["--roi-dir", "R", "--out", "O"], ["fa_tune.main"]),
+    "draw-all-flags": ("draw", ["ALL"], ["draw.main"]),
+    "draw-defaults": ("draw", [], ["draw.main"]),
     "ppt": ("ppt", ["ALL"], ["run_fret_ppt"]),
 }
 
@@ -413,10 +426,10 @@ def test_no_device_flag_fails_without_a_card(cmd, tmp_path, capsys):
     stops with resolve_device's message before anything is read."""
     if torch.cuda.is_available():
         pytest.skip("needs a machine without a card")
-    argv = [cmd, str(tmp_path), "--out", str(tmp_path / "out")]
+    argv = [cmd, str(tmp_path)] + ([] if cmd == "draw" else ["--out", str(tmp_path / "out")])
     if cmd == "morphology":
         argv += ["--px-um", "0.2"]
-    if cmd == "fa":
+    if cmd in ("fa", "fa-tune"):
         argv += ["--roi-dir", str(tmp_path)]
     err = _refused(tmp_path, argv, SystemExit)
     assert "torch.cuda.is_available() is False" in str(err.code)
@@ -424,22 +437,109 @@ def test_no_device_flag_fails_without_a_card(cmd, tmp_path, capsys):
     assert capsys.readouterr().out == ""
 
 
-@pytest.mark.parametrize("argv, match", [
-    (["draw", "{d}"], "item 15"),
-    (["fa-tune", "{d}", "--roi-dir", "{d}", "--out", "{o}"], "item 15"),
-])
-def test_later_slices_raise_before_any_file(argv, match, tmp_path):
-    """The commands of later slices raise, naming their item, before a
-    file is read or written."""
-    import numpy as np
-    from PIL import Image
+# ------------------------------------------------------------------ the apps
 
-    Image.fromarray(np.zeros((8, 8), np.uint16)).save(tmp_path / "S01_1.TIF")
-    before = sorted(os.listdir(tmp_path))
-    err = _refused(tmp_path, [a.format(d=tmp_path, o=tmp_path / "out") for a in argv],
-                   NotImplementedError)
-    assert match in str(err)
-    assert sorted(os.listdir(tmp_path)) == before
+def _scripted_show(monkeypatch, plt, script):
+    """``plt.show`` replaced by *script*'s events on the figure it would show:
+    ("key", k, (x, y) or None) or ("click", (x, y)), at data coordinates of
+    the figure's first axes."""
+    from matplotlib.backend_bases import KeyEvent, MouseEvent
+
+    def show(*a, **k):
+        fig = plt.gcf()
+        ax = fig.axes[0]
+        for ev in script:
+            xy = ev[-1]
+            px, py = ax.transData.transform(xy) if xy is not None else (1.0, 1.0)
+            if ev[0] == "key":
+                e = KeyEvent("key_press_event", fig.canvas, ev[1], px, py)
+            else:
+                e = MouseEvent("button_press_event", fig.canvas, px, py, button=1)
+            fig.canvas.callbacks.process(e.name, e)
+        plt.close("all")
+
+    monkeypatch.setattr(plt, "show", show)
+
+
+def _app_folder(root):
+    """Two stages of two channels (a 120 x 160 u16 frame with two blobs),
+    S01 with a saved bundle of two ROIs, S02 without; for fa-tune the
+    channel-0 frames and the ROI JSONs of both stages."""
+    import numpy as np
+
+    from imageprocess_tpu_torch.core import roiio, tiffio
+
+    rng = np.random.default_rng(9)
+    yy, xx = np.mgrid[0:120, 0:160]
+    polys = [np.array([[40.5, 30.5], [100.5, 32.5], [98.5, 90.5], [42.5, 88.5]]),
+             np.array([[110.5, 10.5], [150.5, 12.5], [148.5, 50.5], [112.5, 48.5]])]
+    for s in (1, 2):
+        img = rng.normal(500, 30, (120, 160))
+        for cy, cx in ((60, 70), (45, 55), (30, 130)):
+            img += 3000 * np.exp(-((yy - cy - s) ** 2 + (xx - cx) ** 2) / 80.0)
+        for ch in (0, 1, 2):
+            tiffio.write_tiff16(str(root / f"S0{s}_{ch}.TIF"),
+                                (img * (1 + ch)).clip(0, 65535).astype(np.uint16))
+        roiio.save_roi_bundle(str(root / "rois" / f"S0{s}.json"), f"S0{s}", (120, 160), polys)
+    roiio.save_roi_bundle(str(root / "roi" / "S01.json"), "S01", (120, 160), polys,
+                          view_params={"gamma": 0.8, "last_channel": 2})
+
+
+APP_CASES = {  # id: (argv after the folder, the scripted events)
+    "draw-delete-and-view": (["draw", "{d}"], [
+        ("key", "x", (120.0, 20.0)), ("key", "i", None), ("key", "o", None),
+        ("key", "b", None), ("key", "shift+tab", None), ("key", "q", None)]),
+    "draw-redraw-at-cursor": (["draw", "{d}", "--lang", "ko"], [
+        ("key", "r", (70.0, 60.0)), ("key", "w", None)]),
+    "fa-tune-click-and-save": (
+        ["fa-tune", "{d}", "--roi-dir", "{d}/rois", "--out", "{o}", "--alpha", "2.5"],
+        [("click", (70.0, 60.0)), ("key", "+", None), ("key", "z", None),
+         ("key", "s", None), ("key", "q", None)]),
+    "fa-tune-boost-and-save": (
+        ["fa-tune", "{d}", "--roi-dir", "{d}/rois", "--out", "{o}", "--px-size", "0.2",
+         "--channel", "0"],
+        [("key", "-", None), ("key", "m", None), ("click", (5.0, 5.0)), ("key", "s", None)]),
+}
+
+
+@pytest.mark.parametrize("case", list(APP_CASES))
+def test_apps_run_through_the_cli(case, tmp_path, monkeypatch, capsys):
+    """``draw`` and ``fa-tune`` through ``cli.main`` with ``--device cpu``,
+    each window driven by the same scripted events as the JAX CLI's: the
+    saved files equal JAX's (bundle JSON, mask, overlay and zip entries;
+    the tuner's CSVs cell for cell), the run's lines too."""
+    import matplotlib
+
+    matplotlib.use("Agg", force=True)
+    import matplotlib.pyplot as plt
+
+    from test_torch_fa import _assert_csv_match
+    from test_torch_refine import _assert_bundles_equal, _bundle_files
+
+    argv, script = APP_CASES[case]
+    _scripted_show(monkeypatch, plt, script)
+    out = {}
+    for name, mod, dev in (("j", jcli, []), ("t", tcli, ["--device", "cpu"])):
+        d = tmp_path / name
+        _app_folder(d)
+        rc = mod.main([a.format(d=d, o=d / "out") for a in argv] + dev)
+        lines = [s.replace(str(d), "<d>") for s in capsys.readouterr().out.splitlines()]
+        out[name] = (rc, d, lines)
+    (jrc, jd, jlines), (trc, td, tlines) = out["j"], out["t"]
+    assert jrc == trc == 0
+    assert tlines == jlines
+    if argv[0] == "draw":
+        # S01 had a bundle, which closing rewrites; S02 drew nothing: no bundle
+        assert sorted(os.listdir(td / "roi")) == sorted(os.listdir(jd / "roi")) == \
+            ["S01.json", "mask", "overlay", "zip"]
+        _assert_bundles_equal(_bundle_files(str(td / "roi")), _bundle_files(str(jd / "roi")))
+    else:
+        indiv = ("out", "individual_results")
+        names = sorted(os.listdir(td.joinpath(*indiv)))
+        assert names == sorted(os.listdir(jd.joinpath(*indiv))) == \
+            ["S01_results.csv", "S02_results.csv"]
+        for n in names:
+            _assert_csv_match(str(td.joinpath(*indiv, n)), str(jd.joinpath(*indiv, n)))
 
 
 FA_FIGS = [os.path.join("fig", "S01_FA.png")]

@@ -355,6 +355,23 @@ def test_decode_batch_hist_equals_jax(tiffs, stride):
     assert jnative.decode_tiff_batch_hist(mixed, 1) is None
 
 
+@pytest.mark.parametrize("names", [("lzw16", "deflate16"),
+                                   ("strips2", "lzw16", "strips3", "deflate16"),
+                                   ("lzw16", "lzw8"), ()],
+                         ids=["lzw+deflate", "four", "mixed-dtype", "none"])
+def test_decode_tiff_batch_equals_jax(tiffs, names):
+    """The batch decode of LZW and Deflate u16 files: JAX's frames, or None
+    where JAX gives None (files of another dtype, no files)."""
+    paths = [tiffs[n][0] for n in names]
+    got, want = tnative.decode_tiff_batch(paths), jnative.decode_tiff_batch(paths)
+    if want is None:
+        assert got is None and (not names or "lzw8" in names)
+        return
+    assert got.dtype == want.dtype == np.uint16 and got.shape == (len(names), 97, 131)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, np.stack([tiffs[n][1] for n in names]))
+
+
 @pytest.mark.parametrize("pad", [0, 3])
 def test_decode_batch_hist_tiles_equals_jax(tiffs, pad):
     paths = [tiffs["strips2"][0], tiffs["strips3"][0]]
