@@ -34,8 +34,9 @@ apps' core (the ROI annotator, the FA tuner).  Phases, each
 of which exits non-zero on failure:
 
 1. the card's name and power limit;
-2. build ``kernels/tilestats_u16.cu`` and ``kernels/roistats_f32.cu`` with
-   nvcc into ``imageprocess_tpu_torch/_build/``, one nvcc each, started
+2. build ``kernels/tilestats_u16.cu``, ``kernels/roistats_f32.cu`` and
+   ``kernels/roistats_f32_frame.cu`` (roistats_f32's frame form) with nvcc
+   into ``imageprocess_tpu_torch/_build/``, one nvcc each, started
    together;
 3. hold each kernel to its plain PyTorch version on the card.
    ``tilestats_u16``: random, tie-heavy, empty-ROI and padded-lane cases,
@@ -52,8 +53,14 @@ of which exits non-zero on failure:
    top-byte (f32 key) bin, values over 0..65535 and keys from -inf to
    +inf with subnormals and +-0, n = 0, 1 and 2, ranks on either side of a
    bin edge, C = 1, 2 and 3, tiles of 36, 37 and 50 pixels (unaligned and
-   row-wise staging).  Masks, npx, area, vmin, vmax and the quantiles must
-   be equal; mean, std and vsum within 1e-5 relative;
+   row-wise staging).  Then roistats_f32's frame form on ``frame_cases``:
+   non-square frames with unaligned planes, ragged bands, NaN and +-inf,
+   empty / sparse / full masks, ties, signed zeros, keys from -inf to +inf,
+   n = 0, 1, 2, bin-edge ranks, one pixel in the last band, an H that does
+   not divide into the bands, clusters of 1, 2 and 16 forced, overflowing
+   lists and the bench frame, each launched twice (bit-equal).  Masks, npx,
+   area, vmin, vmax and the quantiles must be equal; mean, std and vsum
+   within 1e-5 relative;
 4. write the dataset (under ``imageprocess_tpu_torch/_build/``);
 5. run each batched runner on the card: the first run checks every
    chunk's kernel output against the plain version on the same device
@@ -75,11 +82,18 @@ of which exits non-zero on failure:
    from device memory), a full-frame ROI, 8-bit, float32-with-NaN and RGB
    frames; every bg_mode x bg_scope of ``run_intensity`` and of
    ``run_fret`` (both ratio modes): the card's rows equal the CPU's, every
-   launch equals its plain version;
+   launch (tile and frame form) equals its plain version, the frame form
+   launched at least once; then the serial ``run_intensity`` with
+   ``bg_scope="roi_union"`` on the dataset: every key through the frame
+   form (24 full-frame lanes, 18 valid), 16 frame-form launches and no
+   tile-form one, each checked, warm / steady seconds and one run under
+   ``torch.profiler``;
 9. ``roistats_f32`` at the serial shapes, each launch checked against its
    plain version: one key (F = 1, C = 2, R = 24, T = 128, unaligned
-   origins) and the whole-frame ROI 0 of a bench frame (zero-padded to
-   2048 x 2048), per call and by graph replay;
+   origins), per call and by graph replay; its frame form at the
+   whole-frame ROI 0 of a bench frame and at a roi_union key (24 lanes),
+   per call and by graph replay, beside the route it replaced (the tile
+   kernel on the frame zero-padded to 2048 x 2048) and the plain version;
 10. rim FRET and morphology on the same dataset (channel 2 donor, 3 FRET,
    0.223 um/px, rim 1.0 um = 4 px), once with the annulus off and once with
    the annulus local background (0.9 / 1.8 um, T = 144) and QC thresholds
@@ -224,7 +238,10 @@ kernel table (``ms`` per call, ``device_ms`` by graph replay, ``bound_ms``,
 ``bound_by``, ``library_ms`` -- null: no single PyTorch call computes
 masked moments with six exact order statistics -- and
 ``launches_per_run``, ``launches_mesh`` (per runner and mesh); ``roistats_f32`` also ``launches_serial`` and its
-``serial_shapes`` times, ``launches_nesprin2`` and its ``nesprin2_shapes``
+``serial_shapes`` times, ``launches_frame`` (its frame form's launches per
+path; each ``launches*`` count is of both forms) and ``frame`` (the frame
+form's source, its times at the two frame shapes beside the old route's
+and the roi_union run), ``launches_nesprin2`` and its ``nesprin2_shapes``
 times, ``launches_tiff_outputs``, ``launches_image_outputs``,
 ``launches_figures``; both ``launches_cli``, ``launches_train`` and
 ``launches_apps``), then
@@ -232,6 +249,11 @@ times, ``launches_tiff_outputs``, ``launches_image_outputs``,
 a card, or outside a checkout, it prints no result and exits non-zero.
 
 ``python3 chip_smoke.py --kernels-only`` stops after phase 3.
+``python3 chip_smoke.py --roi-union-times [--root DIR]`` writes the dataset
+once (under ``imageprocess_tpu_torch/_build/roi_union_data``) and times the
+serial ``run_intensity(bg_scope="roi_union")`` of the checkout at DIR (a
+warm run, five timed), one JSON line; run with the roots of two checkouts
+in turns, it compares them end to end on one card.
 ``python3 chip_smoke.py --kernel-times [--root DIR]`` only builds and
 times the two kernels of the checkout at DIR (default: this one) on
 synthetic bench-like inputs -- the intensity chunk and FRET stacks of
@@ -269,6 +291,9 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "roistats_f32": ("imageprocess_tpu_torch/kernels/roistats_f32.cu",
                      "imageprocess_tpu/ops/pallas_roistats.py:98"),
 }
+#: roistats_f32's frame form: whole frames through ops.roistats.roi_stats_full
+FRAME_SOURCE = "imageprocess_tpu_torch/kernels/roistats_f32_frame.cu"
+BUILDS = (*KERNELS, "roistats_f32_frame")  # one library per source
 ROW_EXACT = (1, 3, 4, 5, 6, 8)       # (R, C, 9) rows: median p5 p95 vmin vmax npx
 ROW_MOMENTS = (0, 2, 7)              # mean std vsum
 
@@ -286,6 +311,14 @@ def card_line() -> str:
         return res.stdout.strip().splitlines()[0]
     except (OSError, subprocess.SubprocessError, IndexError) as e:
         return f"nvidia-smi unavailable ({e})"
+
+
+def roi_launches() -> int:
+    """``roistats_f32`` launches since the last reset, of both its forms:
+    the tile kernel's and the frame kernel's (``roistats_f32_frame``)."""
+    from imageprocess_tpu_torch.ops import roi_stats_kernel as rsk
+
+    return rsk.launches["roistats_f32"] + rsk.launches["roistats_f32_frame"]
 
 
 # ------------------------------------------------------------------ compare
@@ -724,6 +757,127 @@ def check_radix(device) -> dict:
     return worst
 
 
+def frame_cases(bench: bool = True):
+    """(name, frames (C, H, W) f32, masks (N, H, W) bool, opts, the moment
+    rows to compare) numpy cases of the frame form (``roi_frame_rows``;
+    *opts* force its cluster size or list capacity): non-square frames
+    both ways with W not a multiple of 4 (unaligned planes, pixel by
+    pixel), aligned planes with ragged bands, NaN and +-inf, empty, sparse
+    and full masks side by side, all-equal values, ties and signed zeros,
+    keys from -inf to +inf, n = 0, 1 and 2, ranks on either side of a radix
+    bin edge, one valid pixel in the last row of the last band, an H that
+    does not divide into the bands, lists that overflow, and with *bench*
+    the bench frame (1536 x 2048) with a full mask, the 18 bench circles,
+    one circle and an empty lane."""
+    import numpy as np
+
+    rng = np.random.default_rng(37)
+    f = np.float32
+    cases = []
+
+    def mixed(H, W, C=3, N=5):
+        img = rng.normal(40, 60, (C, H, W)).astype(f)
+        bad = rng.random(img.shape)
+        img[bad < 0.03] = np.nan
+        img[(bad >= 0.03) & (bad < 0.04)] = np.inf
+        img[(bad >= 0.04) & (bad < 0.05)] = -np.inf
+        masks = rng.random((N, H, W)) < 0.3
+        masks[1] = False                                  # empty (a padded lane)
+        masks[2] = True                                   # the whole frame
+        masks[3] = rng.random((H, W)) < 0.01              # sparse
+        yy, xx = np.mgrid[0:H, 0:W]
+        masks[4] = (xx - W / 3) ** 2 + (yy - H / 2) ** 2 <= (min(H, W) / 4) ** 2
+        return img, masks
+
+    for h, w in ((97, 53), (40, 130), (64, 102), (64, 128)):
+        img, masks = mixed(h, w)
+        cases.append((f"mixed masks H={h} W={w}", img, masks, {}, ROW_MOMENTS))
+    img, masks = mixed(64, 102)
+    for opts in ({"cluster": 1}, {"cluster": 2}, {"cluster": 16}):
+        cases.append((f"mixed masks H=64 W=102 {opts}", img, masks, opts, ROW_MOMENTS))
+    masks = rng.random((3, 50, 64)) < 0.6
+    cases.append(("all equal", np.full((2, 50, 64), 3.25, f), masks, {}, ROW_MOMENTS))
+    vals = np.array([-0.0, 0.0, -1.5, 2.25, 2.25, 7.0, 3e6, -1e-3], f)
+    cases.append(("ties and signed zeros", rng.choice(vals, (3, 48, 60)).astype(f),
+                  rng.random((4, 48, 60)) < 0.5, {}, ROW_MOMENTS))
+    special = np.array([0.0, -0.0, 1e-45, -1e-45, 1e-40, -1e-40, 1.17e-38,
+                        -3.4e38, 3.4e38, np.inf, -np.inf, np.nan, 1.0, -1.0], f)
+    mag = 10.0 ** rng.uniform(-44, 38, (2, 60, 76))
+    wide = (mag * rng.choice([-1.0, 1.0], mag.shape)).astype(f)
+    pick = rng.random(wide.shape) < 0.2
+    wide[pick] = rng.choice(special, int(pick.sum()))
+    # sums of +-3.4e38 overflow in any order: the order statistics, vmin,
+    # vmax and npx are what this case holds
+    cases.append(("-inf..+inf, subnormals, +-0", wide, rng.random((3, 60, 76)) < 0.7,
+                  {}, ()))
+    h, w = 37, 29                                         # 16 bands of 3 rows
+    img = rng.normal(0, 100, (2, h, w)).astype(f)
+    masks = np.zeros((5, h, w), bool)
+    masks[1, h - 1, w - 1] = True                         # n = 1, the last pixel
+    masks[2, h - 1, 0] = masks[2, 0, 3] = True            # n = 2
+    masks[3].flat[rng.choice(h * w, 102, replace=False)] = True
+    img[:, masks[3]] = np.stack([rng.permutation(_edge_values(False))
+                                 for _ in range(2)])
+    masks[4, h - 1, w // 2] = True                        # the last band alone
+    cases.append(("n=0,1,2, bin-edge ranks, the last row of the last band", img,
+                  masks, {}, ROW_MOMENTS))
+    cases.append(("n=0,1,2 ... cluster 16", img, masks, {"cluster": 16}, ROW_MOMENTS))
+    img, masks = mixed(151, 96, C=2, N=5)                 # 16 bands of 10 rows, the
+    # last of one row
+    cases.append(("H=151 over 16 bands", img, masks, {"cluster": 16}, ROW_MOMENTS))
+    # lists: sweep 1's overflow with sweep 3's fitting (cap 64, one CTA);
+    # both overflowing (all equal values, cap 4); no lists at all
+    img = rng.normal(100, 30, (2, 64, 128)).astype(f)
+    masks = np.ones((2, 64, 128), bool)
+    masks[1] = rng.random((64, 128)) < 0.5
+    cases.append(("sweep-1 lists overflow, candidates fit", img, masks,
+                  {"cluster": 1, "warp_cap": 64}, ROW_MOMENTS))
+    eq = np.full((2, 64, 128), 7.0, f)
+    eq[:, ::7] = 9.0
+    cases.append(("candidate lists overflow", eq, masks, {"cluster": 1, "warp_cap": 4},
+                  ROW_MOMENTS))
+    cases.append(("no lists", img, masks, {"warp_cap": 0}, ROW_MOMENTS))
+    if bench:
+        img = (rng.normal(120, 15, (2, H, W))
+               + 3000.0 * (rng.random((2, H, W)) > 0.97)).astype(f)
+        img[img < 100] = 0.0                              # clipped, as corrected
+        yy, xx = np.mgrid[0:H, 0:W]
+        disks = [(xx - 150 - 200 * (i % 8)) ** 2 + (yy - 150 - 300 * (i // 8)) ** 2
+                 <= ROI_RADIUS ** 2 for i in range(N_ROI)]
+        masks = np.stack([np.ones((H, W), bool), np.any(disks, axis=0), disks[0],
+                          np.zeros((H, W), bool)])
+        cases.append(("bench frame: full, 18 circles, one circle, empty", img, masks,
+                      {}, ROW_MOMENTS))
+    return cases
+
+
+def check_frames(device) -> dict:
+    """The frame form against its plain version on every ``frame_cases``
+    case, each launched twice (the two rows bit-equal)."""
+    import torch
+
+    from imageprocess_tpu_torch.ops import roi_stats_kernel as rsk
+
+    worst = {"max_abs_err": 0.0, "max_rel_err_moments": 0.0}
+    for name, frames, masks, opts, moments in frame_cases():
+        fr, mk = (torch.from_numpy(a).to(device) for a in (frames, masks))
+        want = rsk.roi_frame_rows_plain(fr, mk)
+        got = rsk.roi_frame_rows(fr, mk, **opts)
+        again = rsk.roi_frame_rows(fr, mk, **opts)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+            raise SmokeError(f"roistats_f32_frame {name}: two launches differ")
+        err = compare_packed(got.movedim(-1, 1), want.movedim(-1, 1),
+                             f"roistats_f32_frame {name}", ROW_EXACT, moments)
+        for k in worst:
+            worst[k] = max(worst[k], err[k])
+        print(f"roistats_f32_frame check ok: {name} frames={tuple(frames.shape)} "
+              f"masks={tuple(masks.shape)} opts={opts} npx_sum="
+              f"{int(want[..., 8].nansum().item())} max_abs_err={err['max_abs_err']} "
+              f"max_rel_err_moments={err['max_rel_err_moments']}")
+    return worst
+
+
 # ------------------------------------------------------------------ dataset
 
 def write_tiff_deflate(path: str, img, rows_per_strip: int = 64) -> None:
@@ -1071,7 +1225,7 @@ def run_fret_main_path(folder: str, device: str, reps: int = 3) -> dict:
     finally:
         runner.batched_fret_tile_stats_step = real_step
     torch.cuda.synchronize()
-    launches = rsk.launches["roistats_f32"]
+    launches = roi_launches()
     if len(rows) != N_STAGES * N_ROI:
         raise SmokeError(f"FRET: {len(rows)} rows, want {N_STAGES * N_ROI}: "
                          f"{logs[-5:]}")
@@ -1223,19 +1377,20 @@ def check_fret_serial_path(folder: str) -> int:
 
 class CheckedRoiRows:
     """While active, every ``roistats_f32`` launch of ``ops.roistats``
-    (the tiles of ``roi_stats_tiled``, the whole frames of
-    ``roi_stats_full``) is held to the plain version on the same device
-    tensors (outside the launch count: the plain version launches no
-    kernel); the inputs of the first launch of each mask shape (``first``)
-    and of each (channels, mask shape) (``by_launch``) are kept for the
-    timings."""
+    (the tiles of ``roi_stats_tiled`` through the tile form, the whole
+    frames of ``roi_stats_full`` through the frame form) is held to its
+    plain version on the same device tensors (outside the launch counts:
+    the plain versions launch no kernel); the inputs of the first launch of
+    each mask shape (``first``; the frame form's in ``frames``) and of each
+    (channels, mask shape) (``by_launch``) are kept for the timings."""
 
     def __init__(self, what: str):
         from imageprocess_tpu_torch.ops import roistats as trs
 
         self.trs, self.what = trs, what
         self.real = trs.roi_stat_rows
-        self.errs, self.first, self.by_launch = [], {}, {}
+        self.real_frame = trs.roi_frame_rows
+        self.errs, self.first, self.by_launch, self.frames = [], {}, {}, {}
 
     def __enter__(self):
         from imageprocess_tpu_torch.ops import roi_stats_kernel as rsk
@@ -1253,11 +1408,26 @@ class CheckedRoiRows:
                                           (frames, masks, offs))
             return out
 
+        def checked_frame(frames, masks):
+            out = self.real_frame(frames, masks)
+            if frames.is_cuda:
+                want = rsk.roi_frame_rows_plain(frames, masks)
+                self.errs.append(compare_packed(
+                    out.movedim(-1, 1), want.movedim(-1, 1),
+                    f"{self.what} launch {len(self.errs)} frame form "
+                    f"{tuple(frames.shape)} {tuple(masks.shape)}",
+                    ROW_EXACT, ROW_MOMENTS))
+                self.frames.setdefault((tuple(frames.shape), tuple(masks.shape)),
+                                       (frames, masks))
+            return out
+
         self.trs.roi_stat_rows = checked
+        self.trs.roi_frame_rows = checked_frame
         return self
 
     def __exit__(self, *exc):
         self.trs.roi_stat_rows = self.real
+        self.trs.roi_frame_rows = self.real_frame
 
     def worst(self) -> dict:
         return {k: max((e[k] for e in self.errs), default=0.0)
@@ -1306,7 +1476,7 @@ def run_serial_main_path(folder: str, device: str, runner: str, batched_rows,
     with CheckedRoiRows(f"serial {runner}") as chk:
         rows = one_run()
     torch.cuda.synchronize()
-    launches = rsk.launches["roistats_f32"]
+    launches, n_frame = roi_launches(), rsk.launches["roistats_f32_frame"]
     if launches != N_STAGES or len(chk.errs) != N_STAGES:
         raise SmokeError(f"serial {runner}: {launches} roistats_f32 launches, "
                          f"{len(chk.errs)} checked, want {N_STAGES}")
@@ -1326,7 +1496,8 @@ def run_serial_main_path(folder: str, device: str, runner: str, batched_rows,
         times.append(time.perf_counter() - t0)
         if len(again) != len(rows):
             raise SmokeError(f"serial {runner}: a timed run lost rows")
-    return {"rows": len(rows), "launches": launches, "warm_s": warm,
+    return {"rows": len(rows), "launches": launches, "launches_frame": n_frame,
+            "warm_s": warm,
             "steady_s": min(times), "times_s": times, "warm_mpix_s": mpix / warm,
             "steady_mpix_s": mpix / min(times), "key_inputs": chk.first,
             "profile": profile_run(one_run), **chk.worst()}
@@ -1504,7 +1675,7 @@ def run_nesprin2_paths(folder: str, device: str, name: str, reps: int = 2) -> di
         with CheckedRoiRows(f"nesprin2 {kind} ({name})") as chk:
             rows = one_run()
         torch.cuda.synchronize()
-        launches = rsk.launches["roistats_f32"]
+        launches = roi_launches()
         want = per * (N_STAGES if kind == "serial" else N_STAGES // 4)
         if launches != want or len(chk.errs) != want:
             raise SmokeError(f"nesprin2 {kind} ({name}): {launches} roistats_f32 "
@@ -1709,7 +1880,7 @@ def check_variant_paths(folder: str) -> dict:
 
     want = write_variant_experiment(folder)
     quiet = lambda *_: None  # noqa: E731
-    launches, shapes = 0, set()
+    launches = frame_launches = 0
     with CheckedRoiRows("variant") as chk:
         for i, (mode, scope) in enumerate((m, s) for m in ("percentile", "hist-mode", "none")
                                           for s in ("full", "roi_union")):
@@ -1722,23 +1893,26 @@ def check_variant_paths(folder: str) -> dict:
             rsk.reset_launches()
             card = intensity.run_intensity(folder, icfg, log=quiet, device="cuda")
             fcard = fret.run_fret(folder, fcfg, log=quiet, device="cuda")
-            launches += rsk.launches["roistats_f32"]
+            launches += roi_launches()
+            frame_launches += rsk.launches["roistats_f32_frame"]
             cpu = intensity.run_intensity(folder, icfg, log=quiet, device="cpu")
             fcpu = fret.run_fret(folder, fcfg, log=quiet, device="cpu")
             _rows_equal(card, cpu, f"variant intensity {mode} {scope}",
                         ("_mean", "_std", "_vsum"), want["intensity"])
             _rows_equal(fcard, fcpu, f"variant FRET {mode} {scope}",
                         ("_mean", "_std"), want["fret"])
-        shapes = sorted(chk.first)
-    return {"configs": 6, "launches": launches, "tile_shapes": shapes,
+    if frame_launches == 0:
+        raise SmokeError("variant: the frame form of roistats_f32 was never launched")
+    return {"configs": 6, "launches": launches, "launches_frame": frame_launches,
+            "tile_shapes": sorted(chk.first), "frame_shapes": sorted(chk.frames),
             "checked": len(chk.errs), **chk.worst()}
 
 
 def whole_frame_inputs(folder: str):
     """The launch of the whole-frame ROI 0 at the bench frame size: stage
     S01's corrected frames through ``ops.roistats.roi_stats_full`` (the
-    frame zero-padded to one 2048 x 2048 tile), held to the plain version
-    on the way; returns its (frames, masks, offs)."""
+    frame form), held to the plain version on the way; returns its
+    (frames, masks)."""
     import numpy as np
     import torch
 
@@ -1753,7 +1927,145 @@ def whole_frame_inputs(folder: str):
     bc = torch.clamp(x.float() - bgs[:, None, None], min=0.0)
     with CheckedRoiRows("whole frame") as chk:
         trs.roi_stats_full(bc, torch.ones((1, H, W), dtype=torch.bool, device=bc.device))
-    return next(iter(chk.first.values()))
+    return next(iter(chk.frames.values()))
+
+
+def run_roi_union_path(folder: str, reps: int = 2) -> dict:
+    """The serial ``run_intensity`` with ``bg_scope="roi_union"`` on the
+    smoke dataset: every key goes through ``roi_stats_full`` (the 18
+    circles rasterised over the whole frame into 24 lanes).  A warm run; a
+    checked run (every launch held to its plain version, the counts set to
+    0 just before and read just after: one frame-form launch per key, no
+    tile-form one); *reps* timed runs; one run under ``torch.profiler``.
+    Returns the times, counts, profile and the first key's (frames,
+    masks)."""
+    import torch
+
+    from imageprocess_tpu_torch.ops import roi_stats_kernel as rsk
+    from imageprocess_tpu_torch.pipelines import intensity
+
+    workers = max(8, (os.cpu_count() or 1) * 2)
+    cfg = intensity.IntensityConfig(channels=CHANNELS, bg_scope="roi_union",
+                                    channel_colors={2: "Green", 3: "Red"})
+    out_root = os.path.join(folder, "RES_roi_union")
+
+    def one_run():
+        return intensity.run_intensity(folder, cfg, out_root=out_root, log=lambda *_: None,
+                                       prefetch_workers=workers, device="cuda")
+
+    mpix = N_STAGES * len(CHANNELS) * H * W / 1e6
+    t0 = time.perf_counter()
+    one_run()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    rsk.reset_launches()
+    with CheckedRoiRows("serial intensity roi_union") as chk:
+        rows = one_run()
+    torch.cuda.synchronize()
+    tile, frame = rsk.launches["roistats_f32"], rsk.launches["roistats_f32_frame"]
+    if frame != N_STAGES or tile != 0 or len(chk.errs) != N_STAGES \
+            or len(rows) != N_STAGES * N_ROI:
+        raise SmokeError(f"serial intensity roi_union: {frame} frame-form and {tile} "
+                         f"tile-form launches, {len(chk.errs)} checked, {len(rows)} rows; "
+                         f"want {N_STAGES}, 0, {N_STAGES}, {N_STAGES * N_ROI}")
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        one_run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return {"rows": len(rows), "launches": tile + frame, "launches_frame": frame,
+            "warm_s": warm, "steady_s": min(times), "times_s": times,
+            "warm_mpix_s": mpix / warm, "steady_mpix_s": mpix / min(times),
+            "profile": profile_run(one_run), "inputs": next(iter(chk.frames.values())),
+            **chk.worst()}
+
+
+def roi_union_times(folder: str, reps: int = 5) -> dict:
+    """Wall seconds of the serial ``run_intensity(bg_scope="roi_union")``
+    of the imported checkout on the smoke dataset at *folder*: a warm run,
+    then *reps* timed runs (tables only), with the launches of the last."""
+    import torch
+
+    from imageprocess_tpu_torch.ops import roi_stats_kernel as rsk
+    from imageprocess_tpu_torch.pipelines import intensity
+
+    cfg = intensity.IntensityConfig(channels=CHANNELS, bg_scope="roi_union", do_xls=False)
+    workers = max(8, (os.cpu_count() or 1) * 2)
+
+    def one_run():
+        logs = []
+        rows = intensity.run_intensity(folder, cfg, log=logs.append,
+                                       prefetch_workers=workers, device="cuda")
+        torch.cuda.synchronize()
+        if len(rows) != N_STAGES * N_ROI:
+            raise SmokeError(f"roi_union times: {len(rows)} rows; log {logs[-6:]}")
+
+    t0 = time.perf_counter()
+    one_run()
+    warm, times = time.perf_counter() - t0, []
+    for _ in range(reps):
+        rsk.reset_launches()
+        t0 = time.perf_counter()
+        one_run()
+        times.append(time.perf_counter() - t0)
+    return {"warm_s": warm, "times_s": times, "median_s": sorted(times)[reps // 2],
+            "launches": dict(rsk.launches)}
+
+
+def time_frame_rows(inputs, reps: int = 20, per_graph: int = 10,
+                    graph_reps: int = 5) -> dict:
+    """The frame form on one launch's (frames, masks) against the route it
+    replaces and its plain version: per call (CUDA events, in turns plain /
+    frame / old / old / frame / plain) and on the device (graph replay) for
+    the frame kernel and the old route -- the tile kernel on the frame and
+    masks zero-padded to one S x S tile, S = max(H, W), as
+    ``roi_stats_full`` launched it before (the padding made once, outside
+    the timing) -- each checked against the plain version.  The bound
+    counts the frame's C values once, each valid mask (one with a pixel
+    set) once, and per valid lane its origin (3 int32, as the tile form's
+    bound counts it) and its C x 9 output."""
+    import torch
+
+    from imageprocess_tpu_torch.ops import roi_stats_kernel as rsk
+
+    frames, masks = inputs
+    C, h, w = frames.shape
+    N, S = masks.shape[0], max(h, w)
+    padded = frames.new_zeros((1, C, S, S))
+    padded[0, :, :h, :w] = frames
+    padded_masks = masks.new_zeros((N, S, S))
+    padded_masks[:, :h, :w] = masks
+    offs = torch.zeros((N, 3), dtype=torch.int32, device=frames.device)
+    kern = lambda: rsk.roi_frame_rows(frames, masks)  # noqa: E731
+    old = lambda: rsk.roi_stat_rows(padded, padded_masks, offs)  # noqa: E731
+    plain = lambda: rsk.roi_frame_rows_plain(frames, masks)  # noqa: E731
+    want, out = plain(), kern()
+    err = compare_packed(out.movedim(-1, 1), want.movedim(-1, 1),
+                         f"frame form timing {tuple(masks.shape)}", ROW_EXACT, ROW_MOMENTS)
+    err_old = compare_packed(old().movedim(-1, 1), want.movedim(-1, 1),
+                             f"old route timing {tuple(masks.shape)}", ROW_EXACT,
+                             ROW_MOMENTS)
+    warm = max(1, reps // 10)
+    turns = [cuda_ms(fn, reps, warm) for fn in (plain, kern, old, old, kern, plain)]
+    valid = masks.reshape(N, -1).any(dim=1)
+    nv = int(valid.sum().item())
+    nbytes = C * h * w * 4 + nv * (h * w + 3 * 4 + C * 9 * 4)
+    ops = 7.0 * out[..., 8].sum().item()
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    sms, gmax, cap = rsk.frame_props(frames.device)
+    G = rsk.frame_cluster(N * C, h, sms, gmax)
+    return {"ms": (turns[1] + turns[4]) / 2, "plain_ms": (turns[0] + turns[5]) / 2,
+            "old_ms": (turns[2] + turns[3]) / 2, "turns": turns,
+            "device_ms": graph_ms(kern, per_graph, graph_reps),
+            "old_device_ms": graph_ms(old, per_graph, graph_reps),
+            "bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "valid": nv, "lanes": N, "grid": N * C * G, "cluster": G,
+            "warp_cap": cap, "old_grid": N * C,
+            "shape": [list(frames.shape), list(masks.shape)],
+            "npx": int(out[..., 8].sum().item()), **err,
+            "old_max_abs_err": err_old["max_abs_err"]}
 
 
 def time_roi_rows(inputs, extent=None, reps: int = 50, per_graph: int = 20,
@@ -2442,7 +2754,7 @@ def run_tiff_outputs(data: str, device: str) -> dict:
         with CheckedRoiRows(f"{name} do_tif") as chk:
             rows = run(dict(do_tif=True, **extra), card_root, device)
         torch.cuda.synchronize()
-        launches = rsk.launches["roistats_f32"]
+        launches, n_frame = roi_launches(), rsk.launches["roistats_f32_frame"]
         if launches != TIFF_STAGES or len(chk.errs) != TIFF_STAGES:
             raise SmokeError(f"{name} do_tif: {launches} roistats_f32 launches, "
                              f"{len(chk.errs)} checked, want {TIFF_STAGES}")
@@ -2465,7 +2777,8 @@ def run_tiff_outputs(data: str, device: str) -> dict:
         t0 = time.perf_counter()
         run(dict(do_tif=True, **extra), cpu_root, "cpu")
         cpu_s = time.perf_counter() - t0
-        res[name] = {"launches": launches, "tables_s": t_tables, "tif_s": t_tif,
+        res[name] = {"launches": launches, "launches_frame": n_frame,
+                     "tables_s": t_tables, "tif_s": t_tif,
                      "extra_s_per_key": (t_tif - t_tables) / TIFF_STAGES,
                      "cpu_s": cpu_s, **chk.worst(),
                      **compare_tiffs(card_root, cpu_root, f"{name} TIFFs")}
@@ -2615,7 +2928,7 @@ def run_image_outputs(data: str, device: str) -> dict:
         with CheckedRoiRows(f"{name} do_png") as chk:
             rows = run(True, card_root, device)
         torch.cuda.synchronize()
-        launches = rsk.launches["roistats_f32"]
+        launches, n_frame = roi_launches(), rsk.launches["roistats_f32_frame"]
         if launches != per_key * IMAGE_STAGES or len(chk.errs) != launches:
             raise SmokeError(f"{name} PNGs: {launches} roistats_f32 launches, "
                              f"{len(chk.errs)} checked, want {per_key * IMAGE_STAGES}")
@@ -2647,7 +2960,8 @@ def run_image_outputs(data: str, device: str) -> dict:
         else:
             run(True, cpu_root, "cpu", subset_stage=1)
         cpu_s = time.perf_counter() - t0
-        res[name] = {"launches": launches, "tables_s": t_tables, "png_s": t_png,
+        res[name] = {"launches": launches, "launches_frame": n_frame,
+                     "tables_s": t_tables, "png_s": t_png,
                      "extra_s_per_key": (t_png - t_tables) / IMAGE_STAGES,
                      "pngs_per_key": n_png / IMAGE_STAGES, "cpu_s": cpu_s, **chk.worst(),
                      **compare_pngs(card_root, cpu_root, "S01", lut_step, f"{name} PNGs")}
@@ -3121,7 +3435,7 @@ def run_cli_phase(data: str, card_kind: str, direct: dict) -> dict:
         text = buf.getvalue()
         if rc != 0 or "[ERROR]" in text or "[error]" in text:
             raise SmokeError(f"CLI {name}: exit {rc}: {text[-600:]}")
-        return {"roistats_f32": rsk.launches["roistats_f32"],
+        return {"roistats_f32": roi_launches(),
                 "tilestats_u16": tsk.launches["tilestats_u16"]}
 
     def counted(fn):
@@ -3129,7 +3443,7 @@ def run_cli_phase(data: str, card_kind: str, direct: dict) -> dict:
         tsk.reset_launches()
         fn()
         torch.cuda.synchronize()
-        return {"roistats_f32": rsk.launches["roistats_f32"],
+        return {"roistats_f32": roi_launches(),
                 "tilestats_u16": tsk.launches["tilestats_u16"]}
 
     def want(name, got, expect):
@@ -3292,7 +3606,7 @@ def run_cli_phase(data: str, card_kind: str, direct: dict) -> dict:
     if status != {"deps": "ok", "native": "ok", "numerics": "ok", "write": "ok",
                   "backend": "ok", "mesh": "ok"} or not report["ok"] \
             or card_kind not in backend or "tilestats_u16" not in backend \
-            or "roistats_f32" not in backend \
+            or "roistats_f32_frame" not in backend \
             or "virtual 4-shard cuda mesh" not in report["checks"]["mesh"]["detail"]:
         raise SmokeError(f"CLI doctor: {report}")
     shutil.rmtree(root, ignore_errors=True)
@@ -3397,13 +3711,14 @@ def run_figures(data: str) -> dict:
         rsk.reset_launches()
         plain_rows = n2_run(runner, f"n2_{runner}_plain", "cuda", False)
         torch.cuda.synchronize()
-        plain_s, plain_launches = time.perf_counter() - t0, rsk.launches["roistats_f32"]
+        plain_s, plain_launches = time.perf_counter() - t0, roi_launches()
         t0 = time.perf_counter()
         rsk.reset_launches()
         with CheckedRoiRows(f"{runner} save_panel") as chk:
             rows = n2_run(runner, f"n2_{runner}", "cuda", True)
         torch.cuda.synchronize()
-        panel_s, launches = time.perf_counter() - t0, rsk.launches["roistats_f32"]
+        panel_s, launches = time.perf_counter() - t0, roi_launches()
+        n_frame = rsk.launches["roistats_f32_frame"]
         if launches != plain_launches or launches != 2 * FIG_STAGES \
                 or len(chk.errs) != launches:
             raise SmokeError(f"panel {runner}: {launches} roistats_f32 launches "
@@ -3416,7 +3731,8 @@ def run_figures(data: str) -> dict:
         _rows_equal(rows, cpu_rows, f"{runner} card vs CPU", ("_mean", "_std", "_vsum"),
                     FIG_STAGES * IMAGE_ROIS)
         res["panel"][runner] = {
-            "launches": launches, "launches_without_panel": plain_launches,
+            "launches": launches, "launches_frame": n_frame,
+            "launches_without_panel": plain_launches,
             "compared": _same_pngs(os.path.join(root, f"n2_{runner}"),
                                    os.path.join(root, "n2_cpu"), panels,
                                    f"panel {runner}"),
@@ -3498,7 +3814,7 @@ def run_figures(data: str) -> dict:
     torch.cuda.synchronize()
     analyze_s = (time.perf_counter() - t0) / FIG_STAGES
     res["fa"] = {"cli_s": cli_s, "files": compared, "mat_dir": bool(mat_dir),
-                 "launches": {"roistats_f32": rsk.launches["roistats_f32"],
+                 "launches": {"roistats_f32": roi_launches(),
                               "tilestats_u16": tsk.launches["tilestats_u16"]},
                  "s_per_figure": figs_s / FIG_STAGES,
                  "s_per_crop": crops_s / (FIG_STAGES * N_ROI),
@@ -3588,7 +3904,7 @@ def run_mesh_runners(data: str, fa_dir: str) -> dict:
 
     def counts():
         return {"tilestats_u16": tsk.launches["tilestats_u16"],
-                "roistats_f32": rsk.launches["roistats_f32"]}
+                "roistats_f32": roi_launches()}
 
     out = {}
     for name, (run, per) in runs.items():
@@ -3983,7 +4299,7 @@ def run_train_path(device: str = "cuda") -> dict:
     times = {f"tile {t}": time_train_steps(t, TRAIN_BATCH, rng, pool, device)
              for t in (TRAIN_TILE, GOLDEN_TRAIN_TILE)}
     launches = {"tilestats_u16": tsk.launches["tilestats_u16"],
-                "roistats_f32": rsk.launches["roistats_f32"]}
+                "roistats_f32": roi_launches()}
     if any(launches.values()):
         raise SmokeError(f"train: hand kernels launched on the training path: {launches}")
     return {"steps": TRAIN_STEPS, "pool": TRAIN_POOL, "pool_s": pool_s, "train_s": train_s,
@@ -4186,7 +4502,7 @@ def run_apps_path(data: str, fa_dir: str, device: str = "cuda") -> dict:
     profiles["set_params"] = profile_run(lambda: tc.set_params(alpha=3.0))
 
     launches = {"tilestats_u16": tsk.launches["tilestats_u16"],
-                "roistats_f32": rsk.launches["roistats_f32"]}
+                "roistats_f32": roi_launches()}
     if any(launches.values()):
         raise SmokeError(f"apps: hand kernels launched on the apps' path: {launches}")
     shutil.rmtree(work, ignore_errors=True)
@@ -4202,12 +4518,12 @@ def build_kernels() -> None:
     from imageprocess_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
-    with cf.ThreadPoolExecutor(len(KERNELS)) as pool:
-        futs = {name: pool.submit(build.load_library, name) for name in KERNELS}
+    with cf.ThreadPoolExecutor(len(BUILDS)) as pool:
+        futs = {name: pool.submit(build.load_library, name) for name in BUILDS}
         for name, fut in futs.items():
             fut.result()
-    print(f"build ok: {', '.join(KERNELS)} in {time.perf_counter() - t0:.1f} s")
-    for name in KERNELS:
+    print(f"build ok: {', '.join(BUILDS)} in {time.perf_counter() - t0:.1f} s")
+    for name in BUILDS:
         for line in build.build_logs.get(name, "").splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
@@ -4239,6 +4555,14 @@ def main(argv) -> int:
           f"CUDA {torch.version.cuda}")
     torch.cuda.set_device(0)
 
+    if "--roi-union-times" in argv:  # the root's kernels build on first use
+        data = os.path.join(REPO, "imageprocess_tpu_torch", "_build", "roi_union_data")
+        if not os.path.isdir(data):
+            make_dataset(data + ".tmp")
+            os.replace(data + ".tmp", data)
+        print(json.dumps({"roi_union_times": roi_union_times(data), "root": root,
+                          "card": card}))
+        return 0
     build_kernels()
     if "--kernel-times" in argv:
         print(json.dumps({"kernel_times": kernel_times(), "root": root,
@@ -4255,6 +4579,10 @@ def main(argv) -> int:
           f"every variant) equal their plain versions, "
           f"max_abs_err={worst_r['max_abs_err']} "
           f"max_rel_err_moments={worst_r['max_rel_err_moments']}")
+    worst_fr = check_frames("cuda")
+    print(f"roistats_f32 frame-form checks ok: every case equal to its plain "
+          f"version, two launches bit-equal, max_abs_err={worst_fr['max_abs_err']} "
+          f"max_rel_err_moments={worst_fr['max_rel_err_moments']}")
     stamp("build and kernel checks")
     if kernels_only:
         print(json.dumps({"kernels_only": True}))
@@ -4324,13 +4652,25 @@ def main(argv) -> int:
           f"run_intensity (PNG mask, whole-frame ROI 0, a {BIG_ROI}-px ROI, a "
           f"full-frame ROI, 8-bit, float32 with NaN, RGB) and run_fret (both ratio "
           f"modes): card rows == CPU rows; {vres['launches']} roistats_f32 launches "
-          f"over mask shapes {vres['tile_shapes']}, each equal to its plain version "
-          f"(max_abs_err={vres['max_abs_err']} "
+          f"({vres['launches_frame']} of them the frame form) over tile shapes "
+          f"{vres['tile_shapes']} and frame shapes {vres['frame_shapes']}, each equal "
+          f"to its plain version (max_abs_err={vres['max_abs_err']} "
           f"max_rel_err_moments={vres['max_rel_err_moments']})")
+    ru = run_roi_union_path(data)
+    pr = ru["profile"]
+    print(f"serial intensity roi_union path ok: run_intensity(bg_scope='roi_union', "
+          f"device='cuda') {ru['rows']} rows, {ru['launches_frame']} frame-form "
+          f"roistats_f32 launches (one per key, 0 tile-form), each equal to its plain "
+          f"version (max_abs_err={ru['max_abs_err']} "
+          f"max_rel_err_moments={ru['max_rel_err_moments']}); on {card}: warm "
+          f"{ru['warm_s']:.4f} s, steady {ru['steady_s']:.4f} s (best of "
+          f"{[round(x, 4) for x in ru['times_s']]} s, {ru['steady_mpix_s']:.2f} Mpix/s); "
+          f"under torch.profiler one run {pr['wall_s']:.4f} s, device busy "
+          f"{pr['device_ms']:.3f} ms over {pr['events']} kernels and copies "
+          f"({pr['events'] / N_STAGES:.0f} per key; idle {100 * pr['idle_share']:.1f} %); "
+          f"largest: {pr['top']}")
     key_in = next(iter(serial["run_intensity"]["key_inputs"].values()))
-    serial_times = {"serial key": time_roi_rows(key_in),
-                    "whole frame": time_roi_rows(whole_frame_inputs(data), (H, W),
-                                                 reps=10, per_graph=4, graph_reps=3)}
+    serial_times = {"serial key": time_roi_rows(key_in)}
     for name, tm in serial_times.items():
         print(f"roistats_f32 at the {name} on {card}: frames {tm['shape'][0]} masks "
               f"{tm['shape'][1]} (use_smem={tm['use_smem']}, "
@@ -4342,6 +4682,23 @@ def main(argv) -> int:
               f"{H}x{W} frame, origin and output of the {tm['valid']} valid of "
               f"{tm['lanes']} lanes, {tm['ops']:.0f} f32 ops) = "
               f"{100 * tm['bound_ms'] / tm['device_ms']:.1f} % of bound on the device")
+    frame_times = {"whole frame": time_frame_rows(whole_frame_inputs(data)),
+                   "roi_union": time_frame_rows(ru["inputs"])}
+    for name, tm in frame_times.items():
+        print(f"roistats_f32 frame form at the {name} on {card}: frames {tm['shape'][0]} "
+              f"masks {tm['shape'][1]} ({tm['valid']} valid), grid {tm['grid']} CTAs in "
+              f"clusters of {tm['cluster']} (lists of {tm['warp_cap']} keys per warp); "
+              f"kernel {tm['ms']:.4f} ms per call, {tm['device_ms']:.4f} ms on the device "
+              f"(graph replay); old route (the tile kernel on the {max(H, W)}^2 padded "
+              f"frame, {tm['old_grid']} CTAs) {tm['old_ms']:.4f} ms per call, "
+              f"{tm['old_device_ms']:.4f} ms on the device; plain {tm['plain_ms']:.4f} ms "
+              f"(turns plain/frame/old/old/frame/plain "
+              f"{[round(x, 4) for x in tm['turns']]}); bound {tm['bound_ms']:.5f} ms by "
+              f"{tm['bound_by']} ({tm['bytes']} B: the frame's values once, each valid "
+              f"mask once, origin and output per valid lane; {tm['ops']:.0f} f32 ops) = "
+              f"{100 * tm['bound_ms'] / tm['device_ms']:.2f} % of bound on the device; "
+              f"device time {tm['old_device_ms'] / tm['device_ms']:.1f}x below the old "
+              f"route's")
     stamp("variants and serial kernel shapes")
     n2, n2_times = {}, {}
     for name, (_, per) in N2_CONFIGS.items():
@@ -4716,6 +5073,8 @@ def main(argv) -> int:
                                                                "run_nesprin2")),
                              *(r["max_abs_err"] for r in figs["panel"].values()),
                              *(tm["max_abs_err"] for tm in serial_times.values()),
+                             worst_fr["max_abs_err"], ru["max_abs_err"],
+                             *(tm["max_abs_err"] for tm in frame_times.values()),
                              mesh["runners"]["max_abs_err"]["roistats_f32"]),
                          ftiming),
     }
@@ -4728,7 +5087,29 @@ def main(argv) -> int:
              "roistats_f32": {
         "launches_mesh": launches_mesh["roistats_f32"],
         "launches_serial": {**{k: sr["launches"] for k, sr in serial.items()},
-                            "variant_runs": vres["launches"]},
+                            "variant_runs": vres["launches"],
+                            "run_intensity roi_union": ru["launches"]},
+        "launches_frame": {**{k: sr["launches_frame"] for k, sr in serial.items()},
+                           "variant_runs": vres["launches_frame"],
+                           "run_intensity roi_union": ru["launches_frame"],
+                           **{f"{name} do_tif": r["launches_frame"]
+                              for name, r in tif.items()},
+                           **{f"{name} do_png": img[name]["launches_frame"] for name in (
+                               "run_intensity", "run_fret", "run_nesprin2")},
+                           **{f"{name} save_panel": r["launches_frame"]
+                              for name, r in figs["panel"].items()}},
+        "frame": {"source": FRAME_SOURCE, "max_abs_err_checks": worst_fr["max_abs_err"],
+                  "shapes": {name: {k: tm[k] for k in (
+                      "shape", "valid", "ms", "device_ms", "plain_ms", "old_ms",
+                      "old_device_ms", "bound_ms", "bound_by", "bytes", "grid",
+                      "cluster", "warp_cap", "old_grid", "max_abs_err", "turns")}
+                      for name, tm in frame_times.items()},
+                  "run_intensity roi_union": {k: ru[k] for k in (
+                      "warm_s", "steady_s", "times_s", "steady_mpix_s", "launches_frame")}
+                  | {"profile_events": ru["profile"]["events"],
+                     "events_per_key": ru["profile"]["events"] / N_STAGES,
+                     "idle_share": ru["profile"]["idle_share"],
+                     "device_ms": ru["profile"]["device_ms"]}},
         "serial_shapes": {name: {k: tm[k] for k in (
             "shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "bytes",
             "valid", "grid", "use_smem")} for name, tm in serial_times.items()},

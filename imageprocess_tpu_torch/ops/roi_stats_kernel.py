@@ -1,18 +1,22 @@
-"""Per-ROI statistics of float32 tiles: the hand kernel and its plain version.
+"""Per-ROI statistics of float32 tiles and frames: the hand kernels and
+their plain versions.
 
-Counterpart of ``imageprocess_tpu/ops/pallas_roistats.py``.  One form
-serves every caller: ``frames`` (F, C, H, W) float32, ``masks`` (R, T, T)
-bool and per-ROI int32 origins ``offs`` (R, 3) = (frame, row, col) give
-the (R, C, 9) float32 statistics of each ROI's (T, T) tile in every
-channel, in ``STAT_FIELDS`` order (npx as a float).  Origins are clamped
-into the frame as ``jax.lax.dynamic_slice`` clamps them.
+Counterpart of ``imageprocess_tpu/ops/pallas_roistats.py``, in two forms.
+The tile form serves the tile callers: ``frames`` (F, C, H, W) float32,
+``masks`` (R, T, T) bool and per-ROI int32 origins ``offs`` (R, 3) =
+(frame, row, col) give the (R, C, 9) float32 statistics of each ROI's
+(T, T) tile in every channel, in ``STAT_FIELDS`` order (npx as a float).
+Origins are clamped into the frame as ``jax.lax.dynamic_slice`` clamps
+them.  The frame form takes whole frames: ``frames`` (C, H, W) float32 and
+``masks`` (N, H, W) bool give the (N, C, 9) rows of every full-frame mask.
 
-- ``roi_stat_rows`` launches ``kernels/roistats_f32.cu``.  It takes CUDA
-  tensors only and raises on anything else, on a failed build and on a
-  failed launch.
-- ``roi_stat_rows_plain`` computes the same in plain PyTorch
-  (``ops.stats.masked_stats_batched``): what the CPU runs and what the
-  kernel is held to on the card.
+- ``roi_stat_rows`` launches ``kernels/roistats_f32.cu``, ``roi_frame_rows``
+  ``kernels/roistats_f32_frame.cu`` (one thread-block cluster per (ROI,
+  channel)).  They take CUDA tensors only and raise on anything else, on a
+  failed build and on a failed launch.
+- ``roi_stat_rows_plain`` and ``roi_frame_rows_plain`` compute the same in
+  plain PyTorch (``ops.stats.masked_stats_batched``): what the CPU runs and
+  what the kernels are held to on the card.
 
 The FRET tables step is built on them: ``fret_tile_stats_packed`` (kernel)
 and ``fret_tile_stats_packed_plain`` rasterize the tile-local polygons,
@@ -20,8 +24,9 @@ form [ratio, donor, acceptor] from the raw u16 tiles in plain PyTorch and
 return the (B, 10, 3, N) packing of the JAX runner (nine statistics, then
 the mask area).
 
-``launches`` counts kernel launches: only ``roi_stat_rows``, where the
-kernel is launched, adds to it.
+``launches`` counts kernel launches: only ``roi_stat_rows``
+(``"roistats_f32"``) and ``roi_frame_rows`` (``"roistats_f32_frame"``),
+where the kernels are launched, add to it.
 """
 
 from __future__ import annotations
@@ -40,8 +45,9 @@ N_STATS = len(STAT_FIELDS)
 P_LO1000, P_HI1000 = 5000, 95000
 
 #: kernel launches since the last reset
-launches = {"roistats_f32": 0}
+launches = {"roistats_f32": 0, "roistats_f32_frame": 0}
 _smem_limit: Dict[int, int] = {}
+_frame_props: Dict[int, Tuple[int, int, int]] = {}
 _variants: Dict[Tuple[int, int], Tuple[bool, bool]] = {}
 
 
@@ -212,6 +218,118 @@ def roi_stat_rows(frames, masks, offs, *, p_lo1000: int = P_LO1000,
             f" (R={R}, F={F}, C={C}, H={H}, W={W}, T={T}, use_smem={use_smem}, "
             f"stage_mask={stage_mask})")
     launches["roistats_f32"] += 1
+    return out
+
+
+# ------------------------------------------------------------------ frame form
+
+def _check_frame(frames, masks) -> None:
+    if frames.dim() != 3 or masks.dim() != 3 \
+            or tuple(frames.shape[1:]) != tuple(masks.shape[1:]):
+        raise ValueError(f"frames must be (C, H, W) and masks (N, H, W) of the same "
+                         f"H x W, got {tuple(frames.shape)} and {tuple(masks.shape)}")
+    if frames.dtype != torch.float32 or masks.dtype != torch.bool:
+        raise ValueError("frames must be float32 and masks bool "
+                         f"(got {frames.dtype}, {masks.dtype})")
+    H, W = frames.shape[1:]
+    if H < 1 or W < 1 or H * W >= 2 ** 31:
+        raise ValueError(f"a {H} x {W} frame is empty or has 2^31 pixels or more")
+
+
+def roi_frame_rows_plain(frames, masks, *, p_lo1000: int = P_LO1000,
+                         p_hi1000: int = P_HI1000) -> torch.Tensor:
+    """Plain-PyTorch (N, C, 9) float32 statistics of (C, H, W) float32
+    *frames* over (N, H, W) bool *masks*, as they are (no padding)."""
+    _check_frame(frames, masks)
+    stats = masked_stats_batched(frames[None], masks[:, None], p_lo1000, p_hi1000)
+    return torch.stack([stats[f].to(torch.float32) for f in STAT_FIELDS], -1)
+
+
+def _frame_lib() -> ctypes.CDLL:
+    """The built frame-form library with its C signatures declared."""
+    lib = load_library("roistats_f32_frame")
+    if not getattr(lib, "_ip_bound", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.ip_roistats_f32_frame.argtypes = [vp, vp, vp] + [ci] * 8 + [vp]
+        lib.ip_roistats_f32_frame.restype = ci
+        lib.ip_roistats_frame_max_warp_cap.argtypes = [ci]
+        lib.ip_roistats_frame_max_warp_cap.restype = ci
+        lib.ip_roistats_frame_max_cluster.argtypes = [ci]
+        lib.ip_roistats_frame_max_cluster.restype = ci
+        lib.ip_frame_error_string.argtypes = [ci]
+        lib.ip_frame_error_string.restype = ctypes.c_char_p
+        lib._ip_bound = True
+    return lib
+
+
+def frame_props(device: torch.device) -> Tuple[int, int, int]:
+    """(SMs, the largest cluster size the card holds, the most keys per
+    warp's list) of the frame kernel on *device*, cached per device."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    got = _frame_props.get(idx)
+    if got is None:
+        lib = _frame_lib()
+        with torch.cuda.device(idx):
+            cap = int(lib.ip_roistats_frame_max_warp_cap(idx))
+            gmax = int(lib.ip_roistats_frame_max_cluster(cap)) if cap >= 0 else -1
+        if cap < 0 or gmax < 1:
+            raise RuntimeError(f"could not size roistats_f32_frame's clusters on "
+                               f"cuda:{idx} (lists {cap}, cluster {gmax})")
+        sms = torch.cuda.get_device_properties(idx).multi_processor_count
+        got = _frame_props[idx] = (sms, gmax, cap)
+    return got
+
+
+def frame_cluster(lanes: int, H: int, sms: int, max_cluster: int) -> int:
+    """CTAs per (ROI, channel) of the frame kernel: the largest power of two
+    that keeps *lanes* x G CTAs within one wave of *sms* (one CTA per SM),
+    at most *max_cluster* and at most *H* (a band of one row or more each);
+    at least 1."""
+    g = 1
+    while 2 * g <= min(max_cluster, H) and 2 * g * lanes <= sms:
+        g *= 2
+    return g
+
+
+def roi_frame_rows(frames, masks, *, p_lo1000: int = P_LO1000,
+                   p_hi1000: int = P_HI1000, cluster: Optional[int] = None,
+                   warp_cap: Optional[int] = None) -> torch.Tensor:
+    """(N, C, 9) float32 statistics of (C, H, W) *frames* over (N, H, W)
+    *masks* from the frame kernel, launched on the current stream without
+    synchronising.  Both tensors contiguous on one CUDA device.  *cluster*
+    forces the CTAs per (ROI, channel) and *warp_cap* the keys each warp's
+    list holds (None: ``frame_cluster`` and the most that fit)."""
+    dev = frames.device
+    for name, tns in (("frames", frames), ("masks", masks)):
+        if not (tns.is_cuda and tns.device == dev and tns.is_contiguous()):
+            raise ValueError(
+                f"roi_frame_rows launches the CUDA kernel: {name} must be a "
+                f"contiguous tensor on one CUDA device (got {tns.device}); "
+                "the CPU path is roi_frame_rows_plain")
+    _check_frame(frames, masks)
+    C, H, W = frames.shape
+    N = masks.shape[0]
+    out = torch.empty((N, C, N_STATS), dtype=torch.float32, device=dev)
+    if N * C == 0:
+        return out
+    sms, gmax, cap = frame_props(dev)
+    G = frame_cluster(N * C, H, sms, gmax) if cluster is None else int(cluster)
+    wc = cap if warp_cap is None else int(warp_cap)
+    if not (1 <= G <= gmax and 0 <= wc <= cap):
+        raise ValueError(f"cluster {G} must be in 1..{gmax} and warp_cap {wc} "
+                         f"in 0..{cap}")
+    lib = _frame_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.ip_roistats_f32_frame(
+            frames.data_ptr(), masks.data_ptr(), out.data_ptr(), N, C, H, W,
+            int(p_lo1000), int(p_hi1000), G, wc, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"roistats_f32_frame launch failed: "
+            f"{lib.ip_frame_error_string(rc).decode()} (N={N}, C={C}, H={H}, "
+            f"W={W}, cluster={G}, warp_cap={wc})")
+    launches["roistats_f32_frame"] += 1
     return out
 
 

@@ -11,8 +11,9 @@ shift-exact on the half-integer vertex lattice, so tile statistics equal
 full-frame ones.
 
 u16 tiles take the u16 statistics (``ops.tilestats_u16``); float tiles
-take ``ops.roi_stats_kernel``: on CUDA tensors its hand kernel, on CPU
-tensors its plain version.
+and whole frames take ``ops.roi_stats_kernel``: on CUDA tensors its hand
+kernels (the tile form, and the frame form for whole frames), on CPU
+tensors their plain versions.
 """
 
 from __future__ import annotations
@@ -98,6 +99,15 @@ def roi_stat_rows(frames: torch.Tensor, masks: torch.Tensor,
     return rsk.roi_stat_rows(frames, masks, offs)
 
 
+def roi_frame_rows(frames: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+    """(N, C, 9) float32 statistics of (C, H, W) float frames over (N, H, W)
+    masks (``ops.roi_stats_kernel`` frame form): the hand kernel for CUDA
+    tensors, its plain version for CPU tensors."""
+    if frames.device.type == "cpu":
+        return rsk.roi_frame_rows_plain(frames, masks)
+    return rsk.roi_frame_rows(frames, masks)
+
+
 def roi_stats_tiled(
     imgs: torch.Tensor,         # (C, H, W) float32 (already bg-corrected)
     local_polys: torch.Tensor,  # (N, V, 2) float32, tile-local coords
@@ -120,19 +130,10 @@ def roi_stats_full(
     masks: torch.Tensor,        # (N, H, W) bool
 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """Per-(channel, ROI) stats over whole frames (the JAX package's
-    ``roi_stats`` of full-frame masks) through the same statistics as the
-    tiles: the frame and the masks are zero-padded to one S x S tile,
-    S = max(H, W), the padding masked out.  Returns (stats dict of (C, N),
-    area_px (N,) int32)."""
-    C, H, W = imgs.shape
-    N = masks.shape[0]
-    S = max(H, W)
-    frame = imgs.new_zeros((1, C, S, S))
-    frame[0, :, :H, :W] = imgs
-    padded = masks.new_zeros((N, S, S))
-    padded[:, :H, :W] = masks
-    offs = torch.zeros((N, 3), dtype=torch.int32, device=imgs.device)
-    rows = roi_stat_rows(frame, padded, offs)
+    ``roi_stats`` of full-frame masks) through the frame form of the
+    statistics, the frame and the masks as they are.  Returns (stats dict
+    of (C, N), area_px (N,) int32)."""
+    rows = roi_frame_rows(imgs.contiguous(), masks.contiguous())
     return rsk.rows_to_stats(rows), masks.sum(dim=(1, 2), dtype=torch.int32)
 
 

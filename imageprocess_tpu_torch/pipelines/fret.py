@@ -16,7 +16,8 @@ file for frames it does not take) and loads the ROI polygons;
   (``ops.roistats.roi_stats_tiled``, the ``roistats_f32`` kernel on CUDA
   tensors);
 - ``fret_step`` when an ROI needs the full frame: the same over full-frame
-  masks (``ops.roistats.roi_stats_full``, the same kernel).
+  masks (``ops.roistats.roi_stats_full``, the kernel's frame form
+  ``roistats_f32_frame`` on CUDA tensors).
 
 Only the statistics, areas and the three scalars come back; a pair with no
 ROI file logs ``fret_roi_missing`` and gives no rows.  With ``do_tif`` or

@@ -17,7 +17,8 @@ and runs the device program without synchronising:
   ``roistats_f32`` kernel on CUDA tensors);
 - ``intensity_step`` otherwise (an ROI-union background scope, a mask, the
   whole frame, an ROI that needs the full frame): the same over full-frame
-  masks (``ops.roistats.roi_stats_full``, the same kernel).
+  masks (``ops.roistats.roi_stats_full``, the kernel's frame form
+  ``roistats_f32_frame`` on CUDA tensors).
 
 ``finalize_key`` brings the statistics, areas and backgrounds back in one
 copy and makes the rows.

@@ -165,8 +165,9 @@ def _held_to_plain(got, want, what: str) -> float:
 
 
 def _probe_kernels() -> float:
-    """One small launch of each hand kernel on the card, held to its plain
-    version on the same tensors."""
+    """One small launch of each hand kernel on the card (roistats_f32 in
+    its tile and its frame form), held to its plain version on the same
+    tensors."""
     import torch
 
     from ..ops import roi_stats_kernel as rsk
@@ -192,6 +193,14 @@ def _probe_kernels() -> float:
     rel = max(rel, _held_to_plain(rsk.roi_stat_rows(frames, masks, offs),
                                   rsk.roi_stat_rows_plain(frames, masks, offs),
                                   "roistats_f32"))
+    # the frame form: the whole frame, a rectangle and one pixel
+    whole = torch.zeros((3, 96, 128), dtype=torch.bool, device="cuda")
+    whole[0] = True
+    whole[1, 10:50, 21:90] = True
+    whole[2, 95, 127] = True
+    rel = max(rel, _held_to_plain(rsk.roi_frame_rows(frames[0], whole),
+                                  rsk.roi_frame_rows_plain(frames[0], whole),
+                                  "roistats_f32_frame"))
     torch.cuda.synchronize()
     return rel
 
@@ -217,12 +226,12 @@ def backend_probe(forced: str = "") -> None:
 
     from ..kernels.build import load_library
 
-    names = ("tilestats_u16", "roistats_f32")
+    names = ("tilestats_u16", "roistats_f32", "roistats_f32_frame")
     with cf.ThreadPoolExecutor(len(names)) as pool:  # one nvcc each
         list(pool.map(load_library, names))
     rel = _probe_kernels()
     print(f"{name} x{torch.cuda.device_count()} — dispatch ok; "
-          f"{' and '.join(names)} built, one launch each equal to its plain "
+          f"{', '.join(names)} built, one launch each equal to its plain "
           f"version (moments within {rel:.1e} rel)")
 
 

@@ -101,6 +101,7 @@ def test_backend_probe_on_the_card(capsys):
     line = capsys.readouterr().out.strip()
     assert torch.cuda.get_device_name(0) in line
     assert "tilestats_u16" in line and "roistats_f32" in line
+    assert "roistats_f32_frame" in line
 
 
 @pytest.mark.cuda

@@ -711,7 +711,8 @@ def test_serial_runners_default_to_the_card(timelapse_ds, monkeypatch):
 @pytest.mark.cuda
 def test_cuda_serial_runs_match_cpu(mixed_ds, timelapse_ds):
     """On a card: both serial runners on the card (the roistats_f32
-    kernel, tiles and full frames) against the same runs on the CPU."""
+    kernel, its tile form and its frame form for full frames) against the
+    same runs on the CPU."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (the CUDA kernel has no CPU mode)")
     for folder, kw in ((mixed_ds, {"skip_no_roi": False}),
@@ -721,7 +722,9 @@ def test_cuda_serial_runs_match_cpu(mixed_ds, timelapse_ds):
         rsk.reset_launches()
         card = tint.run_intensity(str(folder), cfg, log=lambda *_: None,
                                   device="cuda")
-        assert rsk.launches["roistats_f32"] >= 1
+        assert rsk.launches["roistats_f32"] + rsk.launches["roistats_f32_frame"] >= 1
+        if kw.get("bg_scope") == "roi_union":  # every key over full-frame masks
+            assert rsk.launches["roistats_f32_frame"] >= 1
         cpu = tint.run_intensity(str(folder), cfg, log=lambda *_: None,
                                  device="cpu")
         _assert_rows_match(card, cpu)
