@@ -78,7 +78,7 @@ from ..ops.roistats import (
 from ..ops.stats import STAT_FIELDS
 from ..parallel import runner
 from ..report.render import save_fret_images
-from ..timing import HostPhases
+from ..timing import HostPhases, call_range
 from .intensity import PinnedPool, _bucket, _pack_key, frames_on_host, to_device
 
 t = i18n.t
@@ -495,6 +495,7 @@ def sharded_batched_fret_tile_stats(mesh, *, clip_neg=True, flip=False):
     return run
 
 
+@call_range
 def run_fret_batched(
     folder: str,
     cfg: FretConfig,
@@ -528,30 +529,33 @@ def run_fret_batched(
                         prefetch_workers=prefetch_workers, cancel=cancel,
                         device=dev)
 
-    out_root = out_root or os.path.join(folder, "RES")
-    roi_dir = os.path.join(folder, "roi")
-    pairs = build_fret_pairs(folder, cfg)
-    if not pairs:
-        log(t("fret_no_pairs").format(donor=cfg.donor_ch,
-                                      acceptor=cfg.acceptor_ch))
-        return []
-
-    flip = cfg.ratio_mode != "FRET/Donor"
-    d_p, a_p = _channel_ps(cfg)
-    shards = mesh if mesh is not None else runner.Mesh((dev,))
-    cuda = any(d.type == "cuda" for d in shards.devices)
-    streams = runner.side_streams(shards)
-    staging = PinnedPool() if cuda else None
-    tile_hint: Dict[str, int] = {}
-    # recycled decode buffers: finalize()/run_serial() return each pair's
-    # (2, H, W) frames and host tiles once nothing reads them
-    frame_pool = native.FrameBufferPool()
     # IP_TIMING=1: the JAX runner's per-phase host wall-time line (ld_*
     # sum over the prefetch threads; this loader uploads nothing, so
-    # ld_upload stays 0 and the upload is under "upload")
+    # ld_upload stays 0 and the upload is under "upload"), then this
+    # runner's other phases
     tm = HostPhases(("load_wait", "pack", "upload", "fetch", "emit", "xls",
                      "ld_decode", "ld_scalars", "ld_gather", "ld_upload"),
-                    "[IP_TIMING:fret]")
+                    "[IP_TIMING:fret]",
+                    extra=("plan", "classify", "serial", "recycle", "ld_roi"))
+    with tm("plan"):
+        out_root = out_root or os.path.join(folder, "RES")
+        roi_dir = os.path.join(folder, "roi")
+        pairs = build_fret_pairs(folder, cfg)
+        if not pairs:
+            log(t("fret_no_pairs").format(donor=cfg.donor_ch,
+                                          acceptor=cfg.acceptor_ch))
+            return []
+
+        flip = cfg.ratio_mode != "FRET/Donor"
+        d_p, a_p = _channel_ps(cfg)
+        shards = mesh if mesh is not None else runner.Mesh((dev,))
+        cuda = any(d.type == "cuda" for d in shards.devices)
+        streams = runner.side_streams(shards)
+        staging = PinnedPool() if cuda else None
+        tile_hint: Dict[str, int] = {}
+        # recycled decode buffers: finalize()/run_serial() return each pair's
+        # (2, H, W) frames and host tiles once nothing reads them
+        frame_pool = native.FrameBufferPool()
 
     def _fit_hint(polys, H, W):
         """(tile, n_bucket) of the run's tile hint (set by the first pair)
@@ -581,19 +585,20 @@ def run_fret_batched(
         native call doing both channels' decode + full-frame histograms +
         ROI-tile extraction.  None -> the decode-then-gather path."""
         _, dpath, apath = kv
-        info = native.tiff_info(dpath)
-        if info is None or info[2] != 16 or info[3] != 1:
-            return None
-        H, W = info[0], info[1]
-        base = _roi_base(roi_dir, dpath, cfg)
-        if not os.path.exists(base + ".json"):
-            return None
-        polys = roiio.load_roi_polygons(base + ".json")
-        fit = _fit_hint(polys, H, W) if polys else None
-        if fit is None:
-            return None
-        t_used, nb_used = fit
-        offs = tile_offsets(polys, H, W, t_used)
+        with tm("ld_roi"):
+            info = native.tiff_info(dpath)
+            if info is None or info[2] != 16 or info[3] != 1:
+                return None
+            H, W = info[0], info[1]
+            base = _roi_base(roi_dir, dpath, cfg)
+            if not os.path.exists(base + ".json"):
+                return None
+            polys = roiio.load_roi_polygons(base + ".json")
+            fit = _fit_hint(polys, H, W) if polys else None
+            if fit is None:
+                return None
+            t_used, nb_used = fit
+            offs = tile_offsets(polys, H, W, t_used)
         with tm("ld_decode"):
             res = native.decode_tiff_batch_hist_tiles(
                 [dpath, apath], 1, np.asarray(offs, np.int32), t_used,
@@ -603,43 +608,48 @@ def run_fret_batched(
         both, hists, tiles_np = res
         with tm("ld_scalars"):
             scalars = _host_fret_scalars(both[0], both[1], cfg, hists=hists)
-        lp, valid = _pre_pad(polys, offs, nb_used)
+        with tm("ld_roi"):
+            lp, valid = _pre_pad(polys, offs, nb_used)
         return kv, (both[0], both[1], polys), scalars, (
             t_used, tiles_np, offs, lp, valid)
 
     def _load(kv):
         """Fused path first; else decode, then gather the tiles with numpy
         at the run's tile hint (when the pair fits it)."""
-        try:
-            item = _load_fused(kv)
-        except Exception:  # noqa: BLE001 — any fused-path surprise falls
-            item = None    # back to the general loader below
-        if item is not None:
-            return item
         key, dpath, apath = kv
-        with tm("ld_decode"):
-            D, A, polys, hists = load_pair(key, dpath, apath, roi_dir, cfg,
-                                           with_hists=True, pool=frame_pool)
-        if not polys or hists is None:
-            # no ROIs, or not one native decode of two u16 frames (whose
-            # (2, H, W) buffer the batch gathers from): process_pair
-            return kv, (D, A, polys), None, None
-        with tm("ld_scalars"):
-            scalars = _host_fret_scalars(D, A, cfg, hists=hists)
-        fit = _fit_hint(polys, *D.shape)
-        if fit is None:
-            return kv, (D, A, polys), scalars, None
-        t_used, nb_used = fit
-        offs = tile_offsets(polys, *D.shape, t_used)
-        with tm("ld_gather"):
-            tiles = gather_tiles(D.base, offs, nb_used, t_used)
-        return kv, (D, A, polys), scalars, (
-            t_used, tiles, offs, *_pre_pad(polys, offs, nb_used))
+        with tm.key(key):
+            try:
+                item = _load_fused(kv)
+            except Exception:  # noqa: BLE001 — any fused-path surprise falls
+                item = None    # back to the general loader below
+            if item is not None:
+                return item
+            with tm("ld_decode"):
+                D, A, polys, hists = load_pair(key, dpath, apath, roi_dir, cfg,
+                                               with_hists=True, pool=frame_pool)
+            if not polys or hists is None:
+                # no ROIs, or not one native decode of two u16 frames (whose
+                # (2, H, W) buffer the batch gathers from): process_pair
+                return kv, (D, A, polys), None, None
+            with tm("ld_scalars"):
+                scalars = _host_fret_scalars(D, A, cfg, hists=hists)
+            with tm("ld_roi"):
+                fit = _fit_hint(polys, *D.shape)
+                if fit is None:
+                    return kv, (D, A, polys), scalars, None
+                t_used, nb_used = fit
+                offs = tile_offsets(polys, *D.shape, t_used)
+            with tm("ld_gather"):
+                tiles = gather_tiles(D.base, offs, nb_used, t_used)
+            with tm("ld_roi"):
+                lp, valid = _pre_pad(polys, offs, nb_used)
+            return kv, (D, A, polys), scalars, (t_used, tiles, offs, lp, valid)
 
-    loader = runner.PrefetchLoader(_load, pairs, workers=max(1, prefetch_workers),
-                                   ahead=32)
-    batch_size = runner.round_batch_to_mesh(batch_size, mesh)
-    _cur_bs, _maybe_grow_chunk = runner.make_autoscaler(loader, batch_size)
+    with tm("plan"):
+        loader = runner.PrefetchLoader(_load, pairs, workers=max(1, prefetch_workers),
+                                       ahead=32)
+        batch_size = runner.round_batch_to_mesh(batch_size, mesh)
+        _cur_bs, _maybe_grow_chunk = runner.make_autoscaler(loader, batch_size)
     rows_all: List[dict] = []
     n_done = 0
 
@@ -656,13 +666,14 @@ def run_fret_batched(
         """A pair the batch program can't take: :func:`process_pair`,
         synchronously."""
         nonlocal n_done
-        (key, dpath, apath), loaded = entry[:2]  # a batch entry has more
-        rows_all.extend(process_pair(key, dpath, apath, roi_dir, cfg, None,
-                                     log=log, loaded=loaded, device=dev))
-        n_done += 1
-        base = loaded[0].base
-        if base is not None and base.shape == (2,) + loaded[0].shape:
-            frame_pool.put(base)  # the native (2, H, W) decode buffer
+        with tm("serial"):
+            (key, dpath, apath), loaded = entry[:2]  # a batch entry has more
+            rows_all.extend(process_pair(key, dpath, apath, roi_dir, cfg, None,
+                                         log=log, loaded=loaded, device=dev))
+            n_done += 1
+            base = loaded[0].base
+            if base is not None and base.shape == (2,) + loaded[0].shape:
+                frame_pool.put(base)  # the native (2, H, W) decode buffer
 
     def dispatch(chunk):
         """Build the padded chunk and launch its device step WITHOUT
@@ -758,34 +769,36 @@ def run_fret_batched(
         with tm("emit"):
             for bi, (kv, (_, _, polys), (_, _, eps_f), _) in enumerate(chunk):
                 _emit_rows(kv, len(polys), packed[bi], eps_f)
-        n_done += len(chunk)
-        # the chunk's copies are complete: its frames, host tiles and
-        # staging buffers can be reused
-        for _, (D, _, _), _, pre in chunk:
-            frame_pool.put(D.base)
-            if pre is not None:
-                frame_pool.put(pre[1])
-        for buf in staged:
-            staging.put(buf)
-        for host, done in parts:
-            if done is not None:
-                staging.put(host)
-        _maybe_grow_chunk()
-        log(t("batch_progress").format(done=n_done))
+        with tm("recycle"):
+            n_done += len(chunk)
+            # the chunk's copies are complete: its frames, host tiles and
+            # staging buffers can be reused
+            for _, (D, _, _), _, pre in chunk:
+                frame_pool.put(D.base)
+                if pre is not None:
+                    frame_pool.put(pre[1])
+            for buf in staged:
+                staging.put(buf)
+            for host, done in parts:
+                if done is not None:
+                    staging.put(host)
+            _maybe_grow_chunk()
+            log(t("batch_progress").format(done=n_done))
 
     sig = None        # dominant frame shape, set by the first pair
 
     def classify(item):
         nonlocal sig
-        kv, loaded, scalars, pre = item
-        D, A, polys = loaded
-        if scalars is None or not polys or D.shape != A.shape:
-            return "serial", (kv, loaded)
-        if sig is None:
-            sig = D.shape
-        if D.shape != sig:
-            return "serial", (kv, loaded)
-        return "batch", (kv, loaded, scalars, pre)
+        with tm("classify"):
+            kv, loaded, scalars, pre = item
+            D, A, polys = loaded
+            if scalars is None or not polys or D.shape != A.shape:
+                return "serial", (kv, loaded)
+            if sig is None:
+                sig = D.shape
+            if D.shape != sig:
+                return "serial", (kv, loaded)
+            return "batch", (kv, loaded, scalars, pre)
 
     def _err_key(it):
         # the raw (key, dpath, apath) loader item on a load failure, or an

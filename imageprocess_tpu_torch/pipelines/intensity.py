@@ -79,7 +79,7 @@ from ..ops.roistats import (
 )
 from ..ops.stats import STAT_FIELDS
 from ..report.render import PanelPngOptions
-from ..timing import HostPhases
+from ..timing import HostPhases, call_range
 
 t = i18n.t
 ChannelGrammar = naming.ChannelGrammar
@@ -584,6 +584,7 @@ def run_intensity(
     return rows_all
 
 
+@call_range
 def run_intensity_batched(
     folder: str,
     cfg: IntensityConfig,
@@ -623,27 +624,30 @@ def run_intensity_batched(
                              prefetch_workers=prefetch_workers, cancel=cancel,
                              device=dev)
 
-    files = naming.list_tifs(folder)
-    keymap = naming.build_keymap(files, cfg.timelapse, cfg.grammar)
-    keymap = _apply_subset(keymap, cfg, log)
-    roi_dir = os.path.join(folder, "roi")
-    out_root = out_root or os.path.join(folder, "RES")
-
-    shards = mesh if mesh is not None else runner.Mesh((dev,))
-    cuda = any(d.type == "cuda" for d in shards.devices)
-    streams = runner.side_streams(shards)
-    staging = PinnedPool() if cuda else None
-    hist_stride = (max(1, cfg.bg_stride)
-                   if cfg.bg_mode in ("percentile", "hist-mode") else 0)
-    tile_hint: Dict[str, int] = {}
-    # recycled decode buffers: finalize()/run_serial() return each key's
-    # frames and host tiles once nothing reads them
-    frame_pool = native.FrameBufferPool()
     # IP_TIMING=1: the JAX runner's per-phase host wall-time line (ld_*
     # sum over the prefetch threads; this loader uploads nothing, so
-    # ld_upload stays 0 and the upload is under "upload")
+    # ld_upload stays 0 and the upload is under "upload"), then this
+    # runner's other phases
     tm = HostPhases(("load_wait", "pack", "upload", "fetch", "emit", "xls",
-                     "ld_decode", "ld_bg", "ld_gather", "ld_upload"))
+                     "ld_decode", "ld_bg", "ld_gather", "ld_upload"),
+                    extra=("plan", "classify", "serial", "recycle", "ld_roi"))
+    with tm("plan"):
+        files = naming.list_tifs(folder)
+        keymap = naming.build_keymap(files, cfg.timelapse, cfg.grammar)
+        keymap = _apply_subset(keymap, cfg, log)
+        roi_dir = os.path.join(folder, "roi")
+        out_root = out_root or os.path.join(folder, "RES")
+
+        shards = mesh if mesh is not None else runner.Mesh((dev,))
+        cuda = any(d.type == "cuda" for d in shards.devices)
+        streams = runner.side_streams(shards)
+        staging = PinnedPool() if cuda else None
+        hist_stride = (max(1, cfg.bg_stride)
+                       if cfg.bg_mode in ("percentile", "hist-mode") else 0)
+        tile_hint: Dict[str, int] = {}
+        # recycled decode buffers: finalize()/run_serial() return each key's
+        # frames and host tiles once nothing reads them
+        frame_pool = native.FrameBufferPool()
 
     def _fit_hint(polys, H, W):
         """(tile, n_bucket) of the session hint (set by the first key) when
@@ -677,23 +681,24 @@ def run_intensity_batched(
         key, chmap = kv
         s, t_code = key
         stid = s if t_code is None else f"{s}_{t_code}"
-        chs, paths = _key_channels(chmap, cfg)
-        if not chs:
-            return None
-        info = native.tiff_info(paths[0])
-        if info is None or info[2] != 16 or info[3] != 1:
-            return None
-        H, W = info[0], info[1]
-        base = naming.find_roi_basepath(
-            roi_dir, os.path.basename(paths[0]), cfg.timelapse, cfg.grammar)
-        if not os.path.exists(base + ".json"):
-            return None
-        polys = roiio.load_roi_polygons(base + ".json")
-        fit = _fit_hint(polys, H, W) if polys else None
-        if fit is None:
-            return None
-        t_used, nb_used = fit
-        offs = tile_offsets(polys, H, W, t_used)
+        with tm("ld_roi"):
+            chs, paths = _key_channels(chmap, cfg)
+            if not chs:
+                return None
+            info = native.tiff_info(paths[0])
+            if info is None or info[2] != 16 or info[3] != 1:
+                return None
+            H, W = info[0], info[1]
+            base = naming.find_roi_basepath(
+                roi_dir, os.path.basename(paths[0]), cfg.timelapse, cfg.grammar)
+            if not os.path.exists(base + ".json"):
+                return None
+            polys = roiio.load_roi_polygons(base + ".json")
+            fit = _fit_hint(polys, H, W) if polys else None
+            if fit is None:
+                return None
+            t_used, nb_used = fit
+            offs = tile_offsets(polys, H, W, t_used)
         with tm("ld_decode"):
             res = native.decode_tiff_batch_hist_tiles(
                 paths, hist_stride, np.asarray(offs, np.int32), t_used,
@@ -703,47 +708,52 @@ def run_intensity_batched(
         imgs, hists, tiles_np = res
         with tm("ld_bg"):
             bgs = _host_bg(imgs, chs, cfg, hists)
-        lp, valid = _pre_pad(polys, offs, nb_used)
+        with tm("ld_roi"):
+            lp, valid = _pre_pad(polys, offs, nb_used)
         return key, (stid, (chs, imgs, polys, None)), bgs, (
             t_used, tiles_np, offs, lp, valid)
 
     def _load(kv):
         """Fused path first; else decode, then gather the tiles with numpy
         at the session's tile hint (when the key fits it)."""
-        try:
-            item = _load_fused(kv)
-        except Exception:  # noqa: BLE001 — any fused-path surprise falls
-            item = None    # back to the general loader below
-        if item is not None:
-            return item
         key = kv[0]
-        with tm("ld_decode"):
-            stid, payload, hists = load_key(key, kv[1], roi_dir, cfg,
-                                            hist_stride=hist_stride,
-                                            pool=frame_pool)
-        if isinstance(payload, str):
-            return key, (stid, payload), None, None
-        chs, imgs, polys, _ = payload
-        if polys is None or imgs.dtype != np.uint16:  # process_key's keys
-            return key, (stid, payload), None, None
-        with tm("ld_bg"):
-            bgs = _host_bg(imgs, chs, cfg, hists)
-        fit = _fit_hint(polys, *imgs.shape[1:])
-        if fit is None:
-            return key, (stid, payload), bgs, None
-        t_used, nb_used = fit
-        offs = tile_offsets(polys, *imgs.shape[1:], t_used)
-        with tm("ld_gather"):
-            tiles = gather_tiles(imgs, offs, nb_used, t_used)
-        return key, (stid, payload), bgs, (
-            t_used, tiles, offs, *_pre_pad(polys, offs, nb_used))
+        with tm.key(key):
+            try:
+                item = _load_fused(kv)
+            except Exception:  # noqa: BLE001 — any fused-path surprise falls
+                item = None    # back to the general loader below
+            if item is not None:
+                return item
+            with tm("ld_decode"):
+                stid, payload, hists = load_key(key, kv[1], roi_dir, cfg,
+                                                hist_stride=hist_stride,
+                                                pool=frame_pool)
+            if isinstance(payload, str):
+                return key, (stid, payload), None, None
+            chs, imgs, polys, _ = payload
+            if polys is None or imgs.dtype != np.uint16:  # process_key's keys
+                return key, (stid, payload), None, None
+            with tm("ld_bg"):
+                bgs = _host_bg(imgs, chs, cfg, hists)
+            with tm("ld_roi"):
+                fit = _fit_hint(polys, *imgs.shape[1:])
+                if fit is None:
+                    return key, (stid, payload), bgs, None
+                t_used, nb_used = fit
+                offs = tile_offsets(polys, *imgs.shape[1:], t_used)
+            with tm("ld_gather"):
+                tiles = gather_tiles(imgs, offs, nb_used, t_used)
+            with tm("ld_roi"):
+                lp, valid = _pre_pad(polys, offs, nb_used)
+            return key, (stid, payload), bgs, (t_used, tiles, offs, lp, valid)
 
-    loader = PrefetchLoader(
-        _load, list(keymap.items()), workers=max(1, prefetch_workers),
-        ahead=32,
-    )
-    batch_size = round_batch_to_mesh(batch_size, mesh)
-    _cur_bs, _maybe_grow_chunk = make_autoscaler(loader, batch_size)
+    with tm("plan"):
+        loader = PrefetchLoader(
+            _load, list(keymap.items()), workers=max(1, prefetch_workers),
+            ahead=32,
+        )
+        batch_size = round_batch_to_mesh(batch_size, mesh)
+        _cur_bs, _maybe_grow_chunk = make_autoscaler(loader, batch_size)
     rows_all: List[dict] = []
     n_done = 0
 
@@ -775,14 +785,15 @@ def run_intensity_batched(
         """A key the batch program can't take: :func:`process_key`,
         synchronously."""
         nonlocal n_done
-        key, stid, payload = entry[:3]  # a batch entry has more
-        rows, logs, _ = process_key(key, None, roi_dir, cfg,
-                                    loaded=(stid, payload), device=dev)
-        rows_all.extend(rows)
-        for line in logs:
-            log(line)
-        n_done += 1
-        frame_pool.put(payload[1])
+        with tm("serial"):
+            key, stid, payload = entry[:3]  # a batch entry has more
+            rows, logs, _ = process_key(key, None, roi_dir, cfg,
+                                        loaded=(stid, payload), device=dev)
+            rows_all.extend(rows)
+            for line in logs:
+                log(line)
+            n_done += 1
+            frame_pool.put(payload[1])
 
     def dispatch(chunk):
         """Build the padded chunk and launch its device step WITHOUT
@@ -878,37 +889,39 @@ def run_intensity_batched(
         with tm("emit"):
             for bi, (key, _, (chs, _, polys, _), *_) in enumerate(chunk):
                 _emit_rows(key, chs, len(polys), packed[bi], bgs[bi])
-        n_done += len(chunk)
-        # the chunk's copies are complete: its frames, host tiles and
-        # staging buffers can be reused
-        for entry in chunk:
-            frame_pool.put(entry[2][1])
-            pre = entry[4]
-            if pre is not None:
-                frame_pool.put(pre[1])
-        for buf in staged:
-            staging.put(buf)
-        for host, done in parts:
-            if done is not None:
-                staging.put(host)
-        _maybe_grow_chunk()
-        log(t("batch_progress").format(done=n_done))
+        with tm("recycle"):
+            n_done += len(chunk)
+            # the chunk's copies are complete: its frames, host tiles and
+            # staging buffers can be reused
+            for entry in chunk:
+                frame_pool.put(entry[2][1])
+                pre = entry[4]
+                if pre is not None:
+                    frame_pool.put(pre[1])
+            for buf in staged:
+                staging.put(buf)
+            for host, done in parts:
+                if done is not None:
+                    staging.put(host)
+            _maybe_grow_chunk()
+            log(t("batch_progress").format(done=n_done))
 
     sig = None        # dominant (shape, channel set), set by the first key
 
     def classify(item):
         nonlocal sig
-        key, (stid, payload), bgs_pre, pre = item
-        if isinstance(payload, str):
-            log(payload)
-            return "skip", None
-        chs, imgs, polys, _ = payload
-        if sig is None and polys is not None:
-            sig = (imgs.shape, tuple(chs))
-        if (polys is None or imgs.dtype != np.uint16
-                or (imgs.shape, tuple(chs)) != sig):
-            return "serial", (key, stid, payload)
-        return "batch", (key, stid, payload, bgs_pre, pre)
+        with tm("classify"):
+            key, (stid, payload), bgs_pre, pre = item
+            if isinstance(payload, str):
+                log(payload)
+                return "skip", None
+            chs, imgs, polys, _ = payload
+            if sig is None and polys is not None:
+                sig = (imgs.shape, tuple(chs))
+            if (polys is None or imgs.dtype != np.uint16
+                    or (imgs.shape, tuple(chs)) != sig):
+                return "serial", (key, stid, payload)
+            return "batch", (key, stid, payload, bgs_pre, pre)
 
     was_cancelled = stream_batches(
         tm.iterate(loader, "load_wait"), _cur_bs, classify, dispatch, finalize, run_serial,

@@ -6,14 +6,17 @@ clock on the CPU; ``count(name, n)`` adds to a counter named after the
 innermost open phase.  Functions on the segmentation path take
 ``timer=NO_TIMER``, whose phases and counters cost nothing.
 
-``HostPhases`` is the batched tables runners' ``IP_TIMING=1`` line: host
-wall time per phase, printed to stderr at the end of the run in the JAX
-runners' format.
+``HostPhases`` is the batched tables runners' host phases: their sums
+and the ``IP_TIMING=1`` lines, and their ranges on the profiler's clock
+whenever a ``torch.profiler`` records.  ``call_range`` names each call of
+a runner on that clock.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
+import itertools
 import os
 import sys
 import threading
@@ -21,6 +24,7 @@ import time
 from typing import Dict
 
 import torch
+import torch.autograd.profiler as _profiler
 
 
 class PhaseTimer:
@@ -73,36 +77,80 @@ class _NoTimer:
 NO_TIMER = _NoTimer()
 
 
-class HostPhases:
-    """Host wall seconds per phase of one batched runner call, on only when
-    the ``IP_TIMING`` environment variable is set (else every call is a
-    no-op).  ``report()`` prints ``{tag} k=Nms  k=Nms ...`` to stderr, the
-    keys in the order given.  Phases may be added from the prefetch
-    threads: theirs (``ld_*``) sum over threads."""
+def call_range(runner):
+    """*runner*, each call of it inside a ``call:<name>#<n>`` profiler range
+    while a ``torch.profiler`` records (*n* counts the runner's calls in
+    the process), so that a trace tells its calls apart."""
+    calls = itertools.count(1)
 
-    def __init__(self, keys, tag: str = "[IP_TIMING]"):
-        self.tm = dict.fromkeys(keys, 0.0) if os.environ.get("IP_TIMING") else None
+    @functools.wraps(runner)
+    def call(*args, **kwargs):
+        n = next(calls)
+        if not _profiler._is_profiler_enabled:
+            return runner(*args, **kwargs)
+        with _profiler.record_function(f"call:{runner.__name__}#{n}"):
+            return runner(*args, **kwargs)
+
+    return call
+
+
+class HostPhases:
+    """Host phases of one batched runner call.
+
+    Phases named ``ld_*`` run on the prefetch loader's threads and sum over
+    them; together they are the whole load of a key.  Every other phase
+    runs on the runner's main thread, and those never nest or overlap:
+    together they cover the call.
+
+    Two switches, each read once, when the runner builds its
+    ``HostPhases``: the ``IP_TIMING`` environment variable sums each phase's
+    host wall seconds, which ``report()`` prints to stderr; a recording
+    ``torch.profiler`` makes each phase a ``phase:<name>`` range and
+    ``key()`` a ``key:<stid>`` range, on the clock the device's activity
+    is stamped with.  With neither on, a phase is a ``nullcontext``.
+
+    ``report()`` prints ``{tag} k=Nms  k=Nms ...``, the JAX runners' line,
+    with *keys* in the order given, then the *extra* phases on a second
+    line tagged ``IP_TIMING+``."""
+
+    def __init__(self, keys, tag: str = "[IP_TIMING]", extra=()):
+        self.keys, self.extra = tuple(keys), tuple(extra)
+        self.tm = (dict.fromkeys(self.keys + self.extra, 0.0)
+                   if os.environ.get("IP_TIMING") else None)
+        self.profiled = _profiler._is_profiler_enabled
         self.tag = tag
         self._lock = threading.Lock()
 
     def __call__(self, phase: str):
         """A context manager timing its block into *phase*."""
-        if self.tm is None:
+        if self.tm is None and not self.profiled:
             return contextlib.nullcontext()
         return self._span(phase)
 
     @contextlib.contextmanager
     def _span(self, phase: str):
+        rng = (_profiler.record_function("phase:" + phase) if self.profiled
+               else contextlib.nullcontext())
         t0 = time.perf_counter()
         try:
-            yield
+            with rng:
+                yield
         finally:
-            with self._lock:
-                self.tm[phase] += time.perf_counter() - t0
+            if self.tm is not None:
+                with self._lock:
+                    self.tm[phase] += time.perf_counter() - t0
+
+    def key(self, key):
+        """A ``key:<stid>`` profiler range around the load of the
+        ``(stage, time)`` *key* while profiled (not a phase: no sum)."""
+        if not self.profiled:
+            return contextlib.nullcontext()
+        s, t_code = key
+        return _profiler.record_function(f"key:{s}" if t_code is None else f"key:{s}_{t_code}")
 
     def iterate(self, items, phase: str):
         """*items*, each ``next`` timed into *phase* (a loader's wait)."""
-        if self.tm is None:
+        if self.tm is None and not self.profiled:
             return items
         return self._timed(items, phase)
 
@@ -117,7 +165,10 @@ class HostPhases:
             yield item
 
     def report(self) -> None:
-        if self.tm is not None:
-            print(f"{self.tag} " + "  ".join(
-                f"{k}={v * 1000.0:.0f}ms" for k, v in self.tm.items()),
-                file=sys.stderr)
+        if self.tm is None:
+            return
+        extra_tag = self.tag.replace("IP_TIMING", "IP_TIMING+", 1)
+        for tag, keys in ((self.tag, self.keys), (extra_tag, self.extra)):
+            if keys:
+                print(f"{tag} " + "  ".join(
+                    f"{k}={self.tm[k] * 1000.0:.0f}ms" for k in keys), file=sys.stderr)

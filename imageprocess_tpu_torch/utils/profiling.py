@@ -2,8 +2,9 @@
 
 Pass ``--xprof DIR`` to any command of the port's CLI (or use
 :func:`maybe_profile`) to capture a TensorBoard-loadable trace of the run:
-the host's operators always, the card's kernels and copies when the run's
-device is a card.
+the host's operators always, on every thread, the card's kernels and
+copies when the run's device is a card.  The batched tables runners add
+their ``phase:``, ``call:`` and ``key:`` ranges (``timing.HostPhases``).
 """
 
 from __future__ import annotations
@@ -23,12 +24,17 @@ def maybe_profile(trace_dir: Optional[str], device=None):
         yield
         return
     import torch
-    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+    from torch.profiler import (
+        ProfilerActivity, _ExperimentalConfig, profile, tensorboard_trace_handler,
+    )
 
     activities = [ProfilerActivity.CPU]
     if device is not None and torch.device(device).type == "cuda":
         activities.append(ProfilerActivity.CUDA)
+    # every thread: the batched runners' loader threads hold their keys'
+    # phase: and key: ranges
     with profile(activities=activities,
-                 on_trace_ready=tensorboard_trace_handler(trace_dir)):
+                 on_trace_ready=tensorboard_trace_handler(trace_dir),
+                 experimental_config=_ExperimentalConfig(profile_all_threads=True)):
         yield
 
