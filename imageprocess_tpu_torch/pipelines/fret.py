@@ -77,6 +77,7 @@ from ..ops.roistats import (
 )
 from ..ops.stats import STAT_FIELDS
 from ..parallel import runner
+from ..report.excel import XLS_COUNTERS
 from ..report.render import save_fret_images
 from ..timing import HostPhases, call_range
 from .intensity import PinnedPool, _bucket, _pack_key, frames_on_host, to_device
@@ -536,7 +537,8 @@ def run_fret_batched(
     tm = HostPhases(("load_wait", "pack", "upload", "fetch", "emit", "xls",
                      "ld_decode", "ld_scalars", "ld_gather", "ld_upload"),
                     "[IP_TIMING:fret]",
-                    extra=("plan", "classify", "serial", "recycle", "ld_roi"))
+                    extra=("plan", "classify", "serial", "recycle", "ld_roi"),
+                    counters=XLS_COUNTERS)
     with tm("plan"):
         out_root = out_root or os.path.join(folder, "RES")
         roi_dir = os.path.join(folder, "roi")
@@ -815,7 +817,7 @@ def run_fret_batched(
 
     if cfg.do_xls and rows_all:
         with tm("xls"):
-            save_fret_excel(rows_all, os.path.join(out_root, "xls"), cfg.timelapse)
+            tm.count(save_fret_excel(rows_all, os.path.join(out_root, "xls"), cfg.timelapse))
         log(t("fret_saved"))
     elif cfg.do_xls:
         log(t("fret_no_roi"))

@@ -78,6 +78,7 @@ from ..ops.roistats import (
     choose_tile, pad_local_polys, roi_stats_full, roi_stats_tiled, tile_offsets,
 )
 from ..ops.stats import STAT_FIELDS
+from ..report.excel import XLS_COUNTERS
 from ..report.render import PanelPngOptions
 from ..timing import HostPhases, call_range
 
@@ -630,7 +631,8 @@ def run_intensity_batched(
     # runner's other phases
     tm = HostPhases(("load_wait", "pack", "upload", "fetch", "emit", "xls",
                      "ld_decode", "ld_bg", "ld_gather", "ld_upload"),
-                    extra=("plan", "classify", "serial", "recycle", "ld_roi"))
+                    extra=("plan", "classify", "serial", "recycle", "ld_roi"),
+                    counters=XLS_COUNTERS)
     with tm("plan"):
         files = naming.list_tifs(folder)
         keymap = naming.build_keymap(files, cfg.timelapse, cfg.grammar)
@@ -936,6 +938,6 @@ def run_intensity_batched(
         xls_dir = os.path.join(out_root, "xls")
         os.makedirs(xls_dir, exist_ok=True)
         with tm("xls"):
-            save_intensity_excel(rows_all, keymap, xls_dir)
+            tm.count(save_intensity_excel(rows_all, keymap, xls_dir))
     tm.report()
     return rows_all

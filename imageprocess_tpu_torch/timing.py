@@ -110,13 +110,15 @@ class HostPhases:
     is stamped with.  With neither on, a phase is a ``nullcontext``.
 
     ``report()`` prints ``{tag} k=Nms  k=Nms ...``, the JAX runners' line,
-    with *keys* in the order given, then the *extra* phases on a second
-    line tagged ``IP_TIMING+``."""
+    with *keys* in the order given, then the *extra* phases and the
+    *counters* (``k=N``, summed by ``count``) on a second line tagged
+    ``IP_TIMING+``."""
 
-    def __init__(self, keys, tag: str = "[IP_TIMING]", extra=()):
+    def __init__(self, keys, tag: str = "[IP_TIMING]", extra=(), counters=()):
         self.keys, self.extra = tuple(keys), tuple(extra)
         self.tm = (dict.fromkeys(self.keys + self.extra, 0.0)
                    if os.environ.get("IP_TIMING") else None)
+        self.counts = dict.fromkeys(counters, 0)
         self.profiled = _profiler._is_profiler_enabled
         self.tag = tag
         self._lock = threading.Lock()
@@ -164,11 +166,19 @@ class HostPhases:
                     return
             yield item
 
+    def count(self, counts: Dict[str, int]) -> None:
+        """Add *counts* to the counters of the same names."""
+        for k, n in counts.items():
+            self.counts[k] += n
+
     def report(self) -> None:
         if self.tm is None:
             return
+        def ms(keys):
+            return [f"{k}={self.tm[k] * 1000.0:.0f}ms" for k in keys]
+
         extra_tag = self.tag.replace("IP_TIMING", "IP_TIMING+", 1)
-        for tag, keys in ((self.tag, self.keys), (extra_tag, self.extra)):
-            if keys:
-                print(f"{tag} " + "  ".join(
-                    f"{k}={self.tm[k] * 1000.0:.0f}ms" for k in keys), file=sys.stderr)
+        counts = [f"{k}={n}" for k, n in self.counts.items()]
+        for tag, items in ((self.tag, ms(self.keys)), (extra_tag, ms(self.extra) + counts)):
+            if items:
+                print(f"{tag} " + "  ".join(items), file=sys.stderr)

@@ -35,6 +35,7 @@ STIDS = [f"S{s:02d}" for s in PLAN]
 MAIN = {"plan", "load_wait", "classify", "pack", "upload", "fetch", "emit", "recycle",
         "serial", "xls"}
 EXTRA = ["plan", "classify", "serial", "recycle", "ld_roi"]
+COUNTERS = ["xls_cells_made", "xls_cells_reused", "xls_threaded_kb"]
 # half the least share of a call's wall that its main-thread phases
 # covered in 20 CPU runs of each runner (0.893)
 MIN_COVER = 0.44
@@ -141,8 +142,14 @@ def test_ip_timing_plus_line_holds_the_new_phases(name, exp, tmp_path, monkeypat
     lines = [ln for ln in capfd.readouterr().err.splitlines() if ln.startswith(tag + " ")]
     assert len(lines) == 1
     pairs = [kv.split("=") for kv in lines[0][len(tag) + 1:].split("  ")]
-    assert [k for k, _ in pairs] == EXTRA
-    assert all(v.endswith("ms") and v[:-2].isdigit() for _, v in pairs)
+    phases, counters = pairs[:len(EXTRA)], dict(pairs[len(EXTRA):])
+    assert [k for k, _ in phases] == EXTRA
+    assert all(v.endswith("ms") and v[:-2].isdigit() for _, v in phases)
+    assert list(counters) == COUNTERS
+    assert all(v.isdigit() for v in counters.values())
+    # the per_ROI sheet makes each cell's text; the other sheets and the
+    # CSV take most of theirs from it
+    assert int(counters["xls_cells_reused"]) > int(counters["xls_cells_made"]) > 0
 
 
 def test_without_a_switch_a_phase_is_a_null_context(monkeypatch, capfd):
