@@ -8,7 +8,7 @@ and exit codes, run with PyTorch on a card.
     imageprocess-torch fa         <img_dir> --roi-dir R --out O [...]
     imageprocess-torch fa-tune    <img_dir> --roi-dir R --out O [...]
     imageprocess-torch crop       <folder> --channel 1 [...]
-    imageprocess-torch roi-auto   <folder> [--backend threshold|unet] [...]
+    imageprocess-torch roi-auto   <folder> [--backend threshold|unet|cpsam] [...]
     imageprocess-torch refine     <folder> [--thr 90] [...]
     imageprocess-torch draw       <folder> [--timelapse]
     imageprocess-torch ppt        <png_folder> [--width-cm 2.0]
@@ -270,11 +270,14 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("roi-auto", help="automatic segmentation (ROI_auto_drawer)")
     p.add_argument("folder")
     p.add_argument("--backend", default="threshold",
-                   choices=["threshold", "unet", "cellpose"])
+                   choices=["threshold", "unet", "cellpose", "cpsam"],
+                   help="cpsam: Cellpose-SAM (a ViT-L encoder) from the "
+                        "--checkpoint file, minimum size 15 px as Cellpose's")
     p.add_argument("--checkpoint", default=None,
-                   help="U-Net checkpoint dir or name: 'golden' (same-prep "
+                   help="unet: checkpoint dir or name: 'golden' (same-prep "
                         "specialist, the default) | 'general' (cross-domain "
-                        "generalist)")
+                        "generalist); cpsam: a Cellpose-SAM state dict file "
+                        "(required)")
     p.add_argument("--prob-threshold", type=float, default=0.5)
     p.add_argument("--channel", type=int, default=None)
     p.add_argument("--thr-mode", default="percentile",

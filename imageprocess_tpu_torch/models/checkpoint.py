@@ -1,4 +1,5 @@
-"""U-Net checkpoints in flax's layout, read and written (numpy only).
+"""U-Net checkpoints in flax's layout, read and written (numpy only), and
+Cellpose-SAM state dicts under Cellpose's own names (:func:`load_cpsam`).
 
 A bundled checkpoint is a directory with ``config.json`` (``features``,
 ``tile``) and ``params.npz``, whose keys are the flax params paths as
@@ -26,6 +27,7 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 import torch
 
+from .cpsam import CellposeSAM, TileMaps
 from .unet import UNet
 
 _KEY = re.compile(r"\['([^']+)'\]")
@@ -159,3 +161,53 @@ def load_unet(ckpt_dir: str, dtype: torch.dtype = torch.bfloat16
     model = UNet(features=tuple(meta["features"]), dtype=dtype)
     model.load_state_dict(params_from_flax(load_checkpoint(ckpt_dir)))
     return model.eval(), int(meta.get("tile", 128))
+
+
+def cpsam_from_state_dict(sd: Mapping[str, torch.Tensor],
+                          dtype: torch.dtype = torch.bfloat16) -> CellposeSAM:
+    """A :class:`CellposeSAM` in eval mode on the CPU, in *dtype*, holding
+    the Cellpose state dict *sd* (keys ``encoder.*``, ``out.*``, ``W2``,
+    ``diam_labels``, ``diam_mean``; a leading ``module.`` is stripped).
+    Every size comes from the tensors' shapes: the width and tokens from
+    ``pos_embed``, the patch from ``patch_embed``, the head size from the
+    relative-position tables (each block's own length, 27 or 127 rows in
+    ViT-L), the depth from the block indices.  ``W2`` must be the identity
+    (the readout is then a pixel shuffle); ``diam_labels`` and
+    ``diam_mean``, Cellpose's size calibration, are not used (no
+    rescaling).  Raises ``ValueError`` for another ``W2`` and for missing
+    or unexpected keys."""
+    sd = {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
+    try:
+        _, S, _, width = sd["encoder.pos_embed"].shape
+        patch = sd["encoder.patch_embed.proj.weight"].shape[-1]
+        depth = 1 + max(int(k.split(".")[2]) for k in sd if k.startswith("encoder.blocks."))
+        rel_rows = [sd[f"encoder.blocks.{i}.attn.rel_pos_h"].shape[0] for i in range(depth)]
+        head_dim = sd["encoder.blocks.0.attn.rel_pos_h"].shape[1]
+        with torch.device("meta"):          # no initialisation: every tensor is assigned
+            net = CellposeSAM(
+                width=width, depth=depth, heads=width // head_dim,
+                mlp_dim=sd["encoder.blocks.0.mlp.lin1.weight"].shape[0], patch=patch,
+                tile=S * patch, neck_dim=sd["encoder.neck.0.weight"].shape[0],
+                nout=sd["out.weight"].shape[0] // patch ** 2, rel_rows=rel_rows)
+    except (KeyError, ValueError) as e:
+        raise ValueError(f"not a Cellpose-SAM state dict: {e!r}") from e
+    no, nout = net.out.out_channels, net.out.out_channels // patch ** 2
+    w2 = sd.pop("W2", None)
+    eye = torch.eye(no).reshape(no, nout, patch, patch)
+    if w2 is not None and not torch.equal(w2.float(), eye):
+        raise ValueError("W2 is not the identity readout of Cellpose-SAM")
+    sd.pop("diam_labels", None)
+    sd.pop("diam_mean", None)
+    missing, unexpected = net.load_state_dict(sd, strict=False, assign=True)
+    if missing or unexpected:
+        raise ValueError(f"Cellpose-SAM state dict: missing {missing}, unexpected {unexpected}")
+    return net.to(dtype).eval()
+
+
+def load_cpsam(path: str, dtype: torch.dtype = torch.bfloat16) -> Tuple[TileMaps, int]:
+    """(``TileMaps`` of the Cellpose-SAM network in the ``torch.save``d state
+    dict *path*, in eval mode on the CPU, in *dtype*; its tile) -- what
+    ``segment.cellseg`` forwards, as :func:`load_unet` gives the U-Net."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    net = cpsam_from_state_dict(sd, dtype)
+    return TileMaps(net).eval(), net.tile

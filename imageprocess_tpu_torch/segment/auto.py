@@ -2,11 +2,28 @@
 of ``imageprocess_tpu/segment/auto.py``).
 
 Backends: ``"unet"`` (the bundled U-Net checkpoints, ``segment.cellseg``),
-``"threshold"`` (Gaussian smooth, percentile or mu + k*sigma threshold,
-open/close, hole filling, small-object removal, CCL, all on the device)
-and ``"cellpose"`` (only where the cellpose package is importable).  Label
-maps become polygons through the reference's cv2 external contours and
-are written as the drawer's ROI JSON bundles.
+``"cpsam"`` (Cellpose-SAM, ``models.cpsam``, from a Cellpose state dict
+file, through the same ``segment.cellseg`` path), ``"threshold"`` (Gaussian
+smooth, percentile or mu + k*sigma threshold, open/close, hole filling,
+small-object removal, CCL, all on the device) and ``"cellpose"`` (only
+where the cellpose package is importable).  Label maps become polygons
+through the reference's cv2 external contours and are written as the
+drawer's ROI JSON bundles.
+
+``"cpsam"`` against Cellpose 4's ``CellposeModel(pretrained_model="cpsam")
+.eval`` with its defaults (no rescaling, ``cellprob_threshold`` 0,
+``min_size`` 15, bf16): the same network, input ``[x, 0, 0]`` and
+unclamped 1/99-percentile normalisation, and these departures:
+
+- the port's tile grid (256-px tiles, overlap 32: 88 tiles on 1536 x
+  2048), where Cellpose's ``make_tiles`` gives 80;
+- the port's feathered blend of the sigmoid probability and the flows,
+  where Cellpose tapers the raw outputs, logits included; the threshold
+  is probability 0.5, Cellpose's logit 0;
+- the port's flow following (``segment.flows``), not Cellpose's 200
+  Euler steps and mask clean-up;
+- one forward batch per frame, where Cellpose passes ``batch_size`` 4
+  (each tile's result does not depend on the batch).
 """
 
 from __future__ import annotations
@@ -43,7 +60,7 @@ NAMED_UNET_CKPTS = {
 
 @dataclass
 class AutoSegConfig:
-    backend: str = "threshold"       # "threshold" | "unet" | "cellpose"
+    backend: str = "threshold"       # "threshold" | "unet" | "cpsam" | "cellpose"
     channel: Optional[int] = None    # filename channel filter (None = all)
     timelapse: bool = False
     # threshold backend
@@ -55,8 +72,9 @@ class AutoSegConfig:
     close_radius: int = 2
     min_size_px: int = 200
     max_labels: int = 1024
-    # unet backend
-    checkpoint: Optional[str] = None   # None -> bundled pretrained
+    # unet and cpsam backends
+    checkpoint: Optional[str] = None   # unet: None -> bundled pretrained;
+                                       # cpsam: a Cellpose-SAM state dict file
     prob_threshold: float = 0.5
     flow_follow: bool = True           # Cellpose-style instance separation
     devices: int = 1                   # >1: shard the tile batch over a mesh
@@ -108,6 +126,8 @@ def auto_segment_step(
 
 
 _UNET_CACHE = {}
+_CPSAM_CACHE = {}
+CPSAM_MIN_SIZE = 15   # px, Cellpose's eval min_size; min_size_px is the other backends'
 
 
 def _unet_model(cfg: AutoSegConfig, device="cuda"):
@@ -127,31 +147,70 @@ def _unet_model(cfg: AutoSegConfig, device="cuda"):
 
 
 def _unet_segment(img: np.ndarray, cfg: AutoSegConfig,
-                  device="cuda") -> List[np.ndarray]:
+                  device="cuda", phases=None) -> List[np.ndarray]:
     """Learned path: bundled (or user) U-Net checkpoint -> tiled inference
     (segment.cellseg) -> polygons."""
     from .cellseg import segment_frame_unet
 
     model, tile = _unet_model(cfg, device)
-    mesh = None
-    if cfg.devices > 1:
-        from ..parallel.runner import make_mesh
-
-        mesh = make_mesh(cfg.devices, device=device)
     return segment_frame_unet(
         img, model, tile=tile,
         prob_threshold=cfg.prob_threshold, min_size_px=cfg.min_size_px,
         max_labels=cfg.max_labels, min_poly_area=cfg.min_poly_area,
-        flow_follow=cfg.flow_follow, mesh=mesh, device=device)
+        flow_follow=cfg.flow_follow, mesh=_mesh(cfg, device), device=device,
+        phases=phases)
+
+
+def _cpsam_model(cfg: AutoSegConfig, device="cuda"):
+    """(Cellpose-SAM ``TileMaps`` on *device*, tile) of the state dict file
+    ``cfg.checkpoint``, cached per (file, device).  Called up front by
+    run_auto_drawer so that a missing or foreign file fails the run."""
+    from ..models.checkpoint import load_cpsam
+
+    dev = resolve_device(device)
+    if not cfg.checkpoint:
+        raise ValueError("backend 'cpsam' needs checkpoint= a Cellpose-SAM state dict "
+                         "file (roi-auto --checkpoint FILE)")
+    key = (os.path.abspath(cfg.checkpoint), str(dev))
+    if key not in _CPSAM_CACHE:
+        model, tile = load_cpsam(key[0])
+        _CPSAM_CACHE[key] = (model.to(dev), tile)
+    return _CPSAM_CACHE[key]
+
+
+def _cpsam_segment(img: np.ndarray, cfg: AutoSegConfig, device="cuda",
+                   phases=None) -> List[np.ndarray]:
+    """Cellpose-SAM through segment.cellseg: unclamped normalisation,
+    Cellpose's thresholds (probability ``cfg.prob_threshold``, 0.5 by
+    default, and ``CPSAM_MIN_SIZE``), the port's flow following."""
+    from .cellseg import segment_frame_unet
+
+    model, tile = _cpsam_model(cfg, device)
+    return segment_frame_unet(
+        img, model, tile=tile, prob_threshold=cfg.prob_threshold,
+        min_size_px=CPSAM_MIN_SIZE, max_labels=cfg.max_labels,
+        min_poly_area=cfg.min_poly_area, flow_follow=cfg.flow_follow,
+        mesh=_mesh(cfg, device), device=device, phases=phases)
+
+
+def _mesh(cfg: AutoSegConfig, device):
+    if cfg.devices <= 1:
+        return None
+    from ..parallel.runner import make_mesh
+
+    return make_mesh(cfg.devices, device=device)
 
 
 def auto_segment_frame(img: np.ndarray, cfg: AutoSegConfig,
-                       device="cuda") -> List[np.ndarray]:
-    """One frame -> list of [x, y] polygons."""
+                       device="cuda", phases=None) -> List[np.ndarray]:
+    """One frame -> list of [x, y] polygons.  *phases*: the run's
+    ``cellseg.seg_phases()`` (a fresh one per frame by default)."""
     if cfg.backend == "cellpose":
         return _cellpose_segment(img, cfg)
     if cfg.backend == "unet":
-        return _unet_segment(img, cfg, device)
+        return _unet_segment(img, cfg, device, phases)
+    if cfg.backend == "cpsam":
+        return _cpsam_segment(img, cfg, device, phases)
     dev = resolve_device(device)
     labels, _, over = auto_segment_step(
         torch.from_numpy(np.asarray(img, np.float32)).to(dev),
@@ -175,7 +234,8 @@ def _cellpose_segment(img: np.ndarray, cfg: AutoSegConfig) -> List[np.ndarray]:
         from cellpose import models  # type: ignore
     except ImportError as e:
         raise RuntimeError(
-            "cellpose is not installed; use backend='threshold'"
+            "cellpose is not installed; use backend='cpsam' (Cellpose-SAM from a "
+            "state dict file, no package needed)"
         ) from e
     model_cls = getattr(models, "CellposeModel", None) or models.Cellpose
     model = model_cls(gpu=cfg.use_gpu, model_type=cfg.model_type)
@@ -209,13 +269,19 @@ def run_auto_drawer(
     # run here; the per-file isolation below is for data errors
     if cfg.backend == "unet":
         _unet_model(cfg, device)
+    elif cfg.backend == "cpsam":
+        _cpsam_model(cfg, device)
     elif cfg.backend == "cellpose":
         try:
             import cellpose  # noqa: F401
         except ImportError as e:
             raise RuntimeError(
-                "cellpose is not installed; use backend='threshold'"
+                "cellpose is not installed; use backend='cpsam' (Cellpose-SAM from a "
+                "state dict file, no package needed)"
             ) from e
+    from .cellseg import seg_phases
+
+    phases = seg_phases()
     grammar = naming.ChannelGrammar.KEYWORD
     written = []
     for path in naming.list_tifs(img_dir):
@@ -230,7 +296,8 @@ def run_auto_drawer(
         # per-file isolation: one corrupt TIFF or a failed inference logs
         # and continues (ROI_auto_drawer.py:222-250)
         try:
-            img = _read_frame(path)
+            with phases("seg_read"):
+                img = _read_frame(path)
         except Exception as e:
             log(i18n.t("auto_read_failed").format(name=base, err=e))
             continue
@@ -238,7 +305,7 @@ def run_auto_drawer(
             log(i18n.t("auto_blank_skip").format(name=base))
             continue
         try:
-            polys = auto_segment_frame(img, cfg, device)
+            polys = auto_segment_frame(img, cfg, device, phases)
         except Exception as e:
             log(i18n.t("auto_seg_failed").format(name=base, err=e))
             continue
@@ -250,8 +317,10 @@ def run_auto_drawer(
         out = os.path.join(roi_dir, f"{tag}.json")
         gen = {
             "cellpose": f"cellpose:{cfg.model_type}",
+            "cpsam": "cellpose:cpsam",
             "unet": "imageprocess_tpu.unet",
         }.get(cfg.backend, "imageprocess_tpu.auto_threshold")
         roiio.save_roi_bundle(out, tag, img.shape, polys, generated_by=gen)
         written.append(out)
+    phases.report()
     return written

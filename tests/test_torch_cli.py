@@ -77,11 +77,16 @@ def test_parsers_list_the_same_commands():
     assert list(_subparsers(jcli.build_parser())) == list(COMMANDS)
 
 
+# choices the port has and the JAX CLI lacks: (command, dest) -> appended choices
+PORT_CHOICES = {("roi-auto", "backend"): ["cpsam"]}   # Cellpose-SAM, models.cpsam
+
+
 @pytest.mark.parametrize("cmd", COMMANDS)
 def test_parser_parity(cmd):
     """Same option strings, dest, default, choices, nargs, type, required
     and action for every option; ``--device`` (default ``cuda``) the only
-    addition, on the commands that compute."""
+    addition, on the commands that compute, and ``PORT_CHOICES`` the only
+    choices added."""
     jopts = _options(_subparsers(jcli.build_parser())[cmd])
     topts = _options(_subparsers(tcli.build_parser())[cmd])
     extra = set(topts) - set(jopts)
@@ -89,9 +94,12 @@ def test_parser_parity(cmd):
     assert set(jopts) <= set(topts)
     for dest, ja in jopts.items():
         ta = topts[dest]
-        for attr in ("option_strings", "dest", "default", "choices", "nargs",
+        for attr in ("option_strings", "dest", "default", "nargs",
                      "type", "required", "const", "metavar"):
             assert getattr(ta, attr) == getattr(ja, attr), (cmd, dest, attr)
+        extra_choices = PORT_CHOICES.get((cmd, dest), [])
+        assert ta.choices == (ja.choices + extra_choices if extra_choices else ja.choices), (
+            cmd, dest, "choices")
         assert type(ta) is type(ja), (cmd, dest)
     if cmd in COMPUTING:
         dev = topts["device"]
